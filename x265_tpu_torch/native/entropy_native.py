@@ -1,0 +1,162 @@
+"""Build + ctypes binding for the native CABAC slice encoder (a copy of
+the reference package's coder, entropy.cpp, carried with its binding).
+
+The context layout header (ctx_offsets.h) is GENERATED from
+ctx_tables.py at build time, so Python remains the single source of
+truth; a checksum handshake asserts the loaded .so matches the current
+layout. Built with g++ -O3 on first use into the package's build
+directory (listed in .gitignore), named by a hash of the source and
+header so parallel processes never load a half-written library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+
+import numpy as np
+
+from ..bitstream.ctx_tables import OFF, NUM_CONTEXTS
+from ..kernels import BUILD_DIR, PKG_DIR
+
+_SRC = PKG_DIR / "native" / "entropy.cpp"
+
+# groups the C++ code addresses by name
+_CPP_GROUPS = [
+    "split_cu_flag", "part_mode", "prev_intra_luma_pred_flag",
+    "intra_chroma_pred_mode", "cbf_luma", "cbf_chroma", "last_sig_x",
+    "last_sig_y", "coded_sub_block_flag", "sig_coeff_flag",
+    "greater1_flag", "greater2_flag", "cu_skip_flag", "pred_mode_flag",
+    "merge_flag", "merge_idx", "mvp_flag", "abs_mvd_greater_flag",
+    "rqt_root_cbf", "sao_merge_flag", "sao_type_idx", "cu_qp_delta_abs",
+    "inter_pred_idc", "cu_transquant_bypass", "split_transform_flag",
+    "ref_idx",
+]
+
+
+def _layout_checksum() -> int:
+    s = ",".join(f"{g}={OFF[g]}" for g in _CPP_GROUPS) + f";n={NUM_CONTEXTS}"
+    return int(hashlib.sha256(s.encode()).hexdigest()[:7], 16)
+
+
+def _gen_header() -> str:
+    lines = ["// GENERATED by entropy_native.py from ctx_tables.py — do not edit"]
+    for g in _CPP_GROUPS:
+        lines.append(f"#define OFF_{g.upper()} {OFF[g]}")
+    lines.append(f"#define CTX_LAYOUT_CHECKSUM {_layout_checksum()}")
+    return "\n".join(lines) + "\n"
+
+
+def _so_path():
+    want = _gen_header()
+    stamp = hashlib.sha256(_SRC.read_bytes() + want.encode()) \
+        .hexdigest()[:16]
+    return BUILD_DIR / f"_entropy-{stamp}.so", BUILD_DIR / f"gen-{stamp}", \
+        want
+
+
+def _build():
+    so, gen, want = _so_path()
+    if so.exists():
+        return so
+    gen.mkdir(parents=True, exist_ok=True)
+    hdr = gen / "ctx_offsets.h"
+    tmp_h = gen / f"ctx_offsets.h.{os.getpid()}.tmp"
+    tmp_h.write_text(want)
+    os.replace(tmp_h, hdr)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    subprocess.run(
+        ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-I", str(gen),
+         "-o", str(tmp), str(_SRC)],
+        check=True, capture_output=True)
+    os.replace(tmp, so)
+    return so
+
+
+_lib = None
+
+
+def get_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(_build()))
+        lib.encode_slice.restype = ctypes.c_int
+        lib.encode_slice.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int)]
+        lib.ctx_layout_checksum.restype = ctypes.c_int
+        assert lib.ctx_layout_checksum() == _layout_checksum(), \
+            "native context layout out of sync — rebuild failed?"
+        _lib = lib
+    return _lib
+
+
+def encode_slice_native(slice_type: int, depth8: np.ndarray,
+                        coeff_y: np.ndarray, coeff_cb: np.ndarray,
+                        coeff_cr: np.ndarray, w: int, h: int,
+                        log2_ctu: int, log2_min_cu: int,
+                        init_states: np.ndarray, *,
+                        mode8: np.ndarray | None = None,
+                        mv8: np.ndarray | None = None, max_merge: int = 2,
+                        sign_hiding: bool = False,
+                        cmode8: np.ndarray | None = None,
+                        nxn8: np.ndarray | None = None,
+                        mode4: np.ndarray | None = None,
+                        slice_qp: int = 26,
+                        intra8: np.ndarray | None = None,
+                        tusplit8: np.ndarray | None = None,
+                        rqt_inter: bool = False
+                        ) -> tuple[bytes, int, int]:
+    """Native slice encoder for I (mode8, NxN via nxn8/mode4) and
+    single-reference P (mv8, intra8, tusplit8) slices without SAO or
+    dQP. Returns (payload_bytes, tail_value, tail_nbits)."""
+    lib = get_lib()
+
+    def arr(a, dt):
+        return None if a is None else np.ascontiguousarray(a, dtype=dt)
+
+    def ptr(a):
+        return None if a is None else a.ctypes.data
+
+    d8 = arr(depth8, np.uint8)
+    cy = arr(coeff_y, np.int16)
+    cb = arr(coeff_cb, np.int16)
+    cr = arr(coeff_cr, np.int16)
+    st = arr(init_states, np.uint8)
+    m8 = arr(mode8, np.uint8)
+    mv = arr(mv8, np.int32)
+    cm8 = arr(cmode8, np.uint8)
+    nx8 = arr(nxn8, np.uint8)
+    m4 = arr(mode4, np.uint8)
+    i8 = arr(intra8, np.uint8)
+    ts8 = arr(tusplit8, np.uint8)
+    cap = w * h * 4 + 4096
+    out = np.empty(cap, dtype=np.uint8)
+    tail_val = ctypes.c_uint32(0)
+    tail_bits = ctypes.c_int(0)
+    n = lib.encode_slice(
+        slice_type, ptr(d8), ptr(m8), ptr(mv), None, None,
+        0, 0, 0, max_merge,
+        1 if sign_hiding else 0, 0, ptr(cm8),
+        ptr(cy), ptr(cb), ptr(cr), None, None, None,
+        ptr(nx8), ptr(m4), ptr(i8), ptr(ts8),
+        1 if rqt_inter else 0, None, slice_qp,
+        w, h, log2_ctu, log2_min_cu, ptr(st), len(st), None,
+        ptr(out), cap, ctypes.byref(tail_val), ctypes.byref(tail_bits))
+    if n < 0:
+        raise RuntimeError("native slice encoder overflowed output buffer")
+    return out[:n].tobytes(), int(tail_val.value), int(tail_bits.value)
