@@ -157,6 +157,160 @@ def test_int_search_tie_keeps_first_candidate():
     assert cost.tolist() == [2 * n * n] * 3
 
 
+def _search_inputs(weighted, seed=3):
+    """The reference's own search inputs at 64x96, me_range 10: its
+    16-region windows (gather_windows_ds at clamped random seeds), the
+    8-block windows cut from them as its me_all_sizes cuts them, the
+    32-block windows, and the search plane (weight-compensated by the
+    reference's inverse_weight_plane under weightp). Penalties are
+    random, small enough that cost ties occur."""
+    cur, ref_y, _, _ = _planes(seed=seed)
+    h, w = cur.shape
+    r, pad = 10, 28
+    side = 2 * r + 1
+    rng = np.random.default_rng(seed)
+    ref_pad = jnp.asarray(np.pad(ref_y.astype(np.uint8), pad, mode="edge"))
+    plane = cur
+    if weighted:
+        plane = np.asarray(ref.inverse_weight_plane(
+            jnp.asarray(cur), jnp.int32(70), jnp.int32(-3), 6, 8))
+    wins = {}
+    for n in (16, 32):
+        by, bx = h // n, w // n
+        y0 = np.repeat(np.arange(by) * n, bx)
+        x0 = np.tile(np.arange(bx) * n, by)
+        sy = np.clip(rng.integers(-14, 15, by * bx), -(y0 + r + 4),
+                     h - n - y0 + r + 4)
+        sx = np.clip(rng.integers(-14, 15, by * bx), -(x0 + r + 4),
+                     w - n - x0 + r + 4)
+        wins[n] = np.asarray(ref.gather_windows_ds(
+            ref_pad, pad, jnp.asarray((y0 + sy - r - 4).astype(np.int32)),
+            jnp.asarray((x0 + sx - r - 4).astype(np.int32)),
+            n + 2 * r + 8))
+    by16, bx16 = h // 16, w // 16
+    s = wins[16].shape[-1]
+    w16r = wins[16].reshape(by16, bx16, s, s)
+    wins[8] = np.stack([np.stack([w16r[:, :, 8 * jj:8 * jj + s - 8,
+                                       8 * ii:8 * ii + s - 8]
+                                  for ii in (0, 1)], axis=2)
+                        for jj in (0, 1)], axis=1).reshape(-1, s - 8, s - 8)
+    pens = {n: rng.integers(0, 40, (2, side, (h // n) * (w // n)))
+            .astype(np.int32) for n in (8, 16, 32)}
+    return plane.astype(np.int32), wins, pens, side
+
+
+def _lanes_np(plane, n):
+    h, w = plane.shape
+    return plane.reshape(h // n, n, w // n, n).transpose(1, 3, 0, 2) \
+        .reshape(n, n, -1).astype(np.int32)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("weighted", (False, True))
+def test_int_search_pair_windows_matches_reference(weighted):
+    """The joint 8/16 search over the region windows equals the
+    reference's int_search_vec_pair on its own 8-block windows and
+    lanes, exactly."""
+    plane, wins, pens, side = _search_inputs(weighted)
+    h, w = plane.shape
+    (px8, py8), (px16, py16) = pens[8], pens[16]
+    (jc8, ji8), (jc16, ji16) = ref.int_search_vec_pair(
+        jnp.asarray(wins[8].transpose(1, 2, 0)),
+        jnp.asarray(_lanes_np(plane, 8)), *map(jnp.asarray,
+                                               (px8, py8, px16, py16)),
+        h // 8, w // 8, side, lead=4)
+    (tc8, ti8), (tc16, ti16) = port.int_search_pair_windows(
+        *_t(wins[16], plane, px8, py8, px16, py16), h // 16, w // 16, side,
+        lead=4)
+    for want, got in ((jc8, tc8), (ji8, ti8), (jc16, tc16), (ji16, ti16)):
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("weighted", (False, True))
+def test_int_search_windows_matches_reference(weighted):
+    """The 32-block search over its windows equals the reference's
+    int_search_vec on its lanes, exactly."""
+    plane, wins, pens, side = _search_inputs(weighted, seed=4)
+    px, py = pens[32]
+    jc, ji = ref.int_search_vec(
+        jnp.asarray(wins[32].transpose(1, 2, 0)),
+        jnp.asarray(_lanes_np(plane, 32)), jnp.asarray(px), jnp.asarray(py),
+        32, side, lead=4)
+    tc, ti = port.int_search_windows(*_t(wins[32], plane, px, py), 32, side,
+                                     lead=4)
+    np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+    np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+
+
+def test_int_search_wrappers_tie_on_index_0():
+    """A flat window and flat penalties tie every candidate: the 8-,
+    16- and 32-blocks all return index 0 and the flat SAD."""
+    side, h, w = 21, 64, 96
+    plane = torch.full((h, w), 200, dtype=torch.int32)
+    pen = {n: torch.full((side, (h // n) * (w // n)), 5, dtype=torch.int32)
+           for n in (8, 16, 32)}
+    w16 = torch.full(((h // 16) * (w // 16), 44, 44), 3, dtype=torch.uint8)
+    (c8, i8), (c16, i16) = port.int_search_pair_windows(
+        w16, plane, pen[8], pen[8], pen[16], pen[16], h // 16, w // 16, side)
+    w32 = torch.full(((h // 32) * (w // 32), 60, 60), 3, dtype=torch.uint8)
+    c32, i32 = port.int_search_windows(w32, plane, pen[32], pen[32], 32, side)
+    for n, c, i in ((8, c8, i8), (16, c16, i16), (32, c32, i32)):
+        assert set(i.tolist()) == {0}
+        assert set(c.tolist()) == {197 * n * n + 10}
+
+
+def test_int_search_wrappers_reject_bad_inputs():
+    side, h, w = 21, 64, 96
+    plane = torch.zeros((h, w), dtype=torch.int32)
+    p8 = torch.zeros((side, 96), dtype=torch.int32)
+    p16 = torch.zeros((side, 24), dtype=torch.int32)
+    p32 = torch.zeros((side, 6), dtype=torch.int32)
+    w16 = torch.zeros((24, 44, 44), dtype=torch.uint8)
+    w32 = torch.zeros((6, 60, 60), dtype=torch.uint8)
+
+    def pair(**kw):
+        a = dict(w16=w16, cur_plane=plane, penx8=p8, peny8=p8, penx16=p16,
+                 peny16=p16, by16=4, bx16=6, side=side)
+        a.update(kw)
+        return port.int_search_pair_windows(**a)
+
+    def single(**kw):
+        a = dict(w=w32, cur_plane=plane, penx=p32, peny=p32, n=32,
+                 side=side)
+        a.update(kw)
+        return port.int_search_windows(**a)
+
+    pair()
+    single()
+    with pytest.raises(ValueError, match="item 19"):       # 10-bit
+        pair(w16=w16.to(torch.int32).to(torch.uint16))
+    with pytest.raises(ValueError, match="item 19"):
+        single(w=w32.to(torch.int32).to(torch.uint16))
+    with pytest.raises(ValueError, match="one device"):
+        pair(cur_plane=plane.to("meta"))
+    with pytest.raises(ValueError, match="one device"):
+        single(penx=p32.to("meta"))
+    bad_shapes = [
+        lambda: pair(w16=w16[:23]),                  # not the region grid
+        lambda: pair(cur_plane=plane[:48]),
+        lambda: pair(penx8=p16),                     # 8-block penalties
+        lambda: pair(w16=w16[:, :36, :36]),          # window too small
+        lambda: pair(cur_plane=plane.long()),
+        lambda: single(w=w32[:5]),
+        lambda: single(n=24, cur_plane=torch.zeros((48, 96), dtype=torch.int32)),
+        lambda: single(n=16),                        # 32-blocks only
+        lambda: single(peny=p32[:20]),
+        lambda: single(w=w32.reshape(6, 3600)),
+    ]
+    for call in bad_shapes:
+        with pytest.raises(ValueError):
+            call()
+
+
 def test_gather_windows_rejects_bad_inputs():
     src = torch.zeros((40, 40), dtype=torch.uint8)
     ys = torch.zeros(3, dtype=torch.int32)

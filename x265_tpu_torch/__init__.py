@@ -2,8 +2,9 @@
 NVIDIA H100 (Hopper, sm_90a).
 
 Plain device code is PyTorch; the per-block reference-window gather of
-the motion search is a CUDA kernel written by hand
-(csrc/gather_windows.cu). The package imports neither JAX nor
+the motion search and the integer full search over those windows are
+CUDA kernels written by hand (csrc/gather_windows.cu,
+csrc/int_search.cu). The package imports neither JAX nor
 x265_tpu: the host layers it needs (bitstream, tables, native CABAC)
 are its own copies. Entry points run on the GPU unless the caller
 passes device="cpu".

@@ -824,7 +824,7 @@ def _pgop_frame(ry, rcb, rcr, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
     cmv16 = _median3_mv(cmv) * 4
     ry_pad = pad_ref(ry.to(torch.uint8), pad_y)
     meres, seeds = me_all_sizes(oy, ry_pad, cmv16, lam_i, radius=me_range,
-                                pad=pad_y, bit_depth=bit_depth, sizes=SIZES,
+                                pad=pad_y, bit_depth=bit_depth,
                                 cur_search=oy_s if weighted else None,
                                 wvec=wvec, weight_denom=weight_denom)
     mvs = {n: meres[n][0] for n in SIZES}

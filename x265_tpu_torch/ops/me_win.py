@@ -3,8 +3,9 @@
 Counterpart of x265_tpu/ops/me_win.py. Per-block random access happens
 in the window gather only (a hand-written CUDA kernel on the GPU,
 csrc/gather_windows.cu); every integer candidate is then a static
-slice of the window and every quarter-pel candidate is evaluated with
-the extended 9-tap filter bank. Reference being recast: x265
+slice of the window, searched on the GPU by a second hand-written
+kernel (csrc/int_search.cu), and every quarter-pel candidate is
+evaluated with the extended 9-tap filter bank. Reference being recast: x265
 source/encoder/motion.cpp StarPatternSearch + subpelRefine.
 
 Layouts follow the reference: "lanes" tensors keep the block batch in
@@ -25,7 +26,7 @@ from .satd import sa8d_nxn_lanes
 
 
 # =============================================================================
-# the window gather (the one kernel of this path)
+# the window gather (csrc/gather_windows.cu)
 # =============================================================================
 
 _GATHER_DTYPES = (torch.uint8, torch.uint16)
@@ -57,8 +58,8 @@ def gather_windows_plain(src: torch.Tensor, ys: torch.Tensor,
 def gather_windows(src: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                    w: int) -> torch.Tensor:
     """(B, w, w) windows of the uint8/uint16 plane `src` with top-left
-    (ys, xs), starts resolved as gather_windows_plain says. A CUDA tensor goes through
-    the kernel (csrc/gather_windows.cu, counted in
+    (ys, xs), starts resolved as gather_windows_plain says. A CUDA
+    tensor goes through the kernel (csrc/gather_windows.cu, counted in
     gather_windows.launches); a CPU tensor through the plain version."""
     if src.dim() != 2 or src.dtype not in _GATHER_DTYPES:
         raise ValueError(f"src must be a 2-D uint8/uint16 plane, got "
@@ -317,6 +318,173 @@ def int_search_vec_pair(win8_t: torch.Tensor, cur8_t: torch.Tensor,
     return (bc8, bi8), (bc16, bi16)
 
 
+def lanes_of(plane: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, n, B) int32 lanes of the n-blocks of an (H, W) plane, blocks
+    in raster order."""
+    h, w = plane.shape
+    by, bx = h // n, w // n
+    return plane.reshape(by, n, bx, n).permute(1, 3, 0, 2) \
+        .reshape(n, n, by * bx).to(torch.int32)
+
+
+def sub8_windows(w16: torch.Tensor, by16: int, bx16: int) -> torch.Tensor:
+    """(B8, S-8, S-8) 8-block windows cut from the (B16, S, S) windows of
+    their 16-regions (same seed) at (8 jj, 8 ii), in the raster order of
+    the 8-grid."""
+    s = w16.shape[-1]
+    w16r = w16.reshape(by16, bx16, s, s)
+    subs = [torch.stack([w16r[:, :, 8 * jj:8 * jj + s - 8,
+                              8 * ii:8 * ii + s - 8]
+                         for ii in (0, 1)], dim=2) for jj in (0, 1)]
+    return torch.stack(subs, dim=1).reshape(4 * by16 * bx16, s - 8, s - 8)
+
+
+def _check_search(name, win, cur_plane, n, pens, side, lead):
+    """Argument checks shared by the two search wrappers; pens is a list
+    of ((side, B) penalty tensor, B)."""
+    if win.dtype == torch.uint16:
+        raise ValueError(f"{name}: uint16 windows (10-bit) are ROADMAP "
+                         f"queue 1 item 19")
+    if win.dtype != torch.uint8 or win.dim() != 3 or \
+            win.shape[1] != win.shape[2]:
+        raise ValueError(f"{name}: windows must be (B, S, S) uint8, got "
+                         f"{win.dtype} {tuple(win.shape)}")
+    if cur_plane.dtype != torch.int32 or cur_plane.dim() != 2:
+        raise ValueError(f"{name}: the current plane must be 2-D int32")
+    if not (0 <= lead and side >= 1 and
+            lead + side + n - 1 <= win.shape[1]):
+        raise ValueError(f"{name}: {side}^2 candidates of {n}-blocks at "
+                         f"lead {lead} do not fit a {win.shape[1]} window")
+    for p, b in pens:
+        if p.dtype != torch.int32 or tuple(p.shape) != (side, b):
+            raise ValueError(f"{name}: penalties must be ({side}, {b}) "
+                             f"int32, got {p.dtype} {tuple(p.shape)}")
+    if any(t.device != win.device for t in (cur_plane, *(p for p, _ in pens))):
+        raise ValueError(f"{name}: all tensors must be on one device")
+    if win.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {win.device}")
+    tensors = (win, cur_plane, *(p for p, _ in pens))
+    if win.device.type == "cuda" and \
+            not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: the kernel needs contiguous tensors")
+
+
+def int_search_pair_windows_plain(w16, cur_plane, penx8, peny8, penx16,
+                                  peny16, by16: int, bx16: int, side: int,
+                                  lead: int = 4):
+    """Plain PyTorch version of int_search_pair_windows: the lanes
+    tensors of the 8-blocks and int_search_vec_pair."""
+    w8_t = sub8_windows(w16, by16, bx16).permute(1, 2, 0)
+    return int_search_vec_pair(w8_t, lanes_of(cur_plane, 8), penx8, peny8,
+                               penx16, peny16, 2 * by16, 2 * bx16, side,
+                               lead)
+
+
+def int_search_pair_windows(w16, cur_plane, penx8, peny8, penx16, peny16,
+                            by16: int, bx16: int, side: int, lead: int = 4):
+    """Joint integer full search of the 16-regions and their four
+    8-blocks over the (B16, S, S) uint8 region windows w16 (raster order
+    of a by16 x bx16 grid, gathered at seed - (radius + lead)), against
+    the (16 by16, 16 bx16) int32 current plane (8-bit samples).
+    penx8/peny8 (side, 4 B16) and penx16/peny16 (side, B16) int32
+    penalties. Returns ((cost8, i8), (cost16, i16)), int32, 8-blocks in
+    the raster order of the 8-grid, i = dy*side + dx: the results of
+    int_search_vec_pair. A CUDA tensor goes through the kernel
+    (csrc/int_search.cu, counted in int_search_pair_windows.launches); a
+    CPU tensor through the plain version."""
+    b16 = by16 * bx16
+    _check_search("int_search_pair_windows", w16, cur_plane, 16,
+                  [(penx8, 4 * b16), (peny8, 4 * b16), (penx16, b16),
+                   (peny16, b16)], side, lead)
+    if w16.shape[0] != b16 or tuple(cur_plane.shape) != (16 * by16,
+                                                         16 * bx16):
+        raise ValueError(f"int_search_pair_windows: {tuple(w16.shape)} "
+                         f"windows and a {tuple(cur_plane.shape)} plane "
+                         f"for a {by16}x{bx16} region grid")
+    if w16.device.type == "cpu":
+        return int_search_pair_windows_plain(w16, cur_plane, penx8, peny8,
+                                             penx16, peny16, by16, bx16,
+                                             side, lead)
+    dev = w16.device
+    c8, i8 = (torch.empty(4 * b16, dtype=torch.int32, device=dev)
+              for _ in range(2))
+    c16, i16 = (torch.empty(b16, dtype=torch.int32, device=dev)
+                for _ in range(2))
+    err = _search_fns()["pair"](
+        w16.data_ptr(), b16, w16.shape[1], lead, side, cur_plane.data_ptr(),
+        cur_plane.shape[1], bx16, penx8.data_ptr(), peny8.data_ptr(),
+        penx16.data_ptr(), peny16.data_ptr(), c8.data_ptr(), i8.data_ptr(),
+        c16.data_ptr(), i16.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int_search_pair_windows launch failed: CUDA "
+                           f"error {err}")
+    int_search_pair_windows.launches += 1
+    return (c8, i8), (c16, i16)
+
+
+int_search_pair_windows.launches = 0
+
+
+def int_search_windows_plain(w, cur_plane, penx, peny, n: int, side: int,
+                             lead: int = 4):
+    """Plain PyTorch version of int_search_windows: int_search_vec on
+    the lanes tensors."""
+    return int_search_vec(w.permute(1, 2, 0), lanes_of(cur_plane, n), penx,
+                          peny, n, side, lead)
+
+
+def int_search_windows(w, cur_plane, penx, peny, n: int, side: int,
+                       lead: int = 4):
+    """Integer full search of the 32-blocks (n must be 32) over their
+    (B, S, S) uint8 windows w, raster order over the (H, W) int32
+    current plane (8-bit samples); penx/peny (side, B) int32 penalties.
+    Returns (best_cost (B,), best_i (B,)), int32: the results of
+    int_search_vec. A CUDA tensor goes through the kernel
+    (csrc/int_search.cu, counted in int_search_windows.launches); a CPU
+    tensor through the plain version."""
+    if n != 32:
+        raise ValueError(f"int_search_windows searches 32-blocks, got {n}")
+    b = w.shape[0] if w.dim() == 3 else -1
+    _check_search("int_search_windows", w, cur_plane, n,
+                  [(penx, b), (peny, b)], side, lead)
+    h, ww = cur_plane.shape
+    if h % n or ww % n or b != (h // n) * (ww // n):
+        raise ValueError(f"int_search_windows: {b} windows for a "
+                         f"{h}x{ww} plane of {n}-blocks")
+    if w.device.type == "cpu":
+        return int_search_windows_plain(w, cur_plane, penx, peny, n, side,
+                                        lead)
+    dev = w.device
+    cost, idx = (torch.empty(b, dtype=torch.int32, device=dev)
+                 for _ in range(2))
+    err = _search_fns()["single"](
+        w.data_ptr(), b, w.shape[1], lead, side, cur_plane.data_ptr(), ww,
+        ww // n, penx.data_ptr(), peny.data_ptr(), cost.data_ptr(),
+        idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int_search_windows launch failed: CUDA error "
+                           f"{err}")
+    int_search_windows.launches += 1
+    return cost, idx
+
+
+int_search_windows.launches = 0
+
+
+@lru_cache(maxsize=None)
+def _search_fns():
+    from ..kernels import load
+    lib = load("int_search")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    pair, single = lib.int_search_pair_u8, lib.int_search_u8
+    pair.argtypes = [p, i, i, i, i, p, i, i, p, p, p, p, p, p, p, p, p]
+    single.argtypes = [p, i, i, i, i, p, i, i, p, p, p, p, p]
+    for fn in (pair, single):
+        fn.restype = ctypes.c_int
+    return {"pair": pair, "single": single}
+
+
 def select_window_lanes(win_t: torch.Tensor, offy: torch.Tensor,
                         offx: torch.Tensor, out: int,
                         nshift: int) -> torch.Tensor:
@@ -352,7 +520,7 @@ def _take_k(a: torch.Tensor, mi: torch.Tensor) -> torch.Tensor:
 
 def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
                  cmv16: torch.Tensor, lam: int, *, radius: int = 6,
-                 pad: int, bit_depth: int = 8, sizes=(8, 16, 32),
+                 pad: int, bit_depth: int = 8,
                  cur_search: torch.Tensor | None = None,
                  wvec: torch.Tensor | None = None,
                  weight_denom: int = 6):
@@ -376,11 +544,6 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
                                           wvec[1], weight_denom, bit_depth)
     if cur_search is None:
         cur_search = cur
-
-    def lanes_of(plane, n):
-        bby, bbx = h // n, w // n
-        return plane.reshape(bby, n, bbx, n).permute(1, 3, 0, 2) \
-            .reshape(n, n, bby * bbx).to(torch.int32)
 
     def grid(n):
         by, bx = h // n, w // n
@@ -423,17 +586,13 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
                          (1, 1), (1, -1), (-1, 1), (-1, -1)],
                         dtype=torch.int32, device=dev)
 
-    def run_size(win_t, cur_t, cur_st, seedx, seedy, n, int_best=None):
-        """win_t: (n+2r+8, n+2r+8, B) windows at seed-(r+4); cur_st is
-        the (possibly weight-compensated) search current, cur_t the
-        true current. Returns (mv_qpel, cost, pred (n, n, B))."""
+    def run_size(win_t, cur_t, seedx, seedy, n, int_best):
+        """win_t: (n+2r+8, n+2r+8, B) windows at seed-(r+4); cur_t the
+        true current; int_best the integer search's (cost, index) over
+        the (possibly weight-compensated) search current. Returns
+        (mv_qpel, cost, pred (n, n, B))."""
         b = cur_t.shape[-1]
-        if int_best is None:
-            penx, peny = pens_of(seedx, seedy)
-            _, best_i = int_search_vec(win_t, cur_st, penx, peny, n, side,
-                                       lead=4)
-        else:
-            _, best_i = int_best
+        _, best_i = int_best
         oy_i = torch.div(best_i, side, rounding_mode="floor")
         ox_i = best_i - oy_i * side
         mvx_i = seedx + ox_i - r
@@ -513,57 +672,35 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
         return (torch.stack([mvqx, mvqy], dim=1), scost,
                 best_pred.permute(2, 0, 1))
 
-    out = {}
-    int16_best = int8_best = None
-    if 8 in sizes:
-        by8, bx8 = h // 8, w // 8
-        b8 = by8 * bx8
-        # the four 8-blocks' (8+2r+8)^2 windows are static slices of the
-        # parent 16-region window (same seed), assembled in raster order
-        w16r = w16.reshape(by16, bx16, wlen16, wlen16)
-        wlen8 = 8 + 2 * r + 8
-        subs = [torch.stack([w16r[:, :, 8 * jj:8 * jj + wlen8,
-                                  8 * ii:8 * ii + wlen8]
-                             for ii in (0, 1)], dim=2) for jj in (0, 1)]
-        w8 = torch.stack(subs, dim=1).reshape(b8, wlen8, wlen8)
-        w8_t = w8.permute(1, 2, 0)
-        cur8 = lanes_of(cur, 8)
-        cur8s = cur8 if cur_search is cur else lanes_of(cur_search, 8)
-        sx8 = up2(sx16, by16, bx16)
-        sy8 = up2(sy16, by16, bx16)
-        if 16 in sizes:
-            # one pass over pixels serves both grids
-            penx8, peny8 = pens_of(sx8, sy8)
-            penx16, peny16 = pens_of(sx16, sy16)
-            int8_best, int16_best = int_search_vec_pair(
-                w8_t, cur8s, penx8, peny8, penx16, peny16, by8, bx8,
-                side, lead=4)
-        out[8] = run_size(w8_t, cur8, cur8s, sx8, sy8, 8,
-                          int_best=int8_best)
+    # the four 8-blocks' (8+2r+8)^2 windows are static slices of the
+    # parent 16-region window (same seed), assembled in raster order
+    w8 = sub8_windows(w16, by16, bx16)
+    sx8 = up2(sx16, by16, bx16)
+    sy8 = up2(sy16, by16, bx16)
+    penx8, peny8 = pens_of(sx8, sy8)
+    penx16, peny16 = pens_of(sx16, sy16)
+    # one pass over pixels serves both grids
+    int8_best, int16_best = int_search_pair_windows(
+        w16, cur_search, penx8, peny8, penx16, peny16, by16, bx16, side,
+        lead=4)
+    out = {8: run_size(w8.permute(1, 2, 0), lanes_of(cur, 8), sx8, sy8, 8,
+                       int8_best),
+           16: run_size(w16.permute(1, 2, 0), lanes_of(cur, 16), sx16, sy16,
+                        16, int16_best)}
 
-    if 16 in sizes:
-        cur16 = lanes_of(cur, 16)
-        cur16s = cur16 if cur_search is cur else lanes_of(cur_search, 16)
-        out[16] = run_size(w16.permute(1, 2, 0), cur16, cur16s, sx16,
-                           sy16, 16, int_best=int16_best)
-
-    seeds32 = None
-    if 32 in sizes:
-        y32, x32 = grid(32)
-        # seed: the coarse MV at the 32-block centre
-        s32 = cmv16.reshape(by16, bx16, 2)[1::2, 1::2].reshape(-1, 2)
-        sx32 = _clip(s32[:, 0], -(x32 + r + 4), (w - 32) - x32 + r + 4)
-        sy32 = _clip(s32[:, 1], -(y32 + r + 4), (h - 32) - y32 + r + 4)
-        wlen32 = 32 + 2 * r + 8
-        w32 = gather_windows_ds(ref_pad, pad, y32 + sy32 - (r + 4),
-                                x32 + sx32 - (r + 4), wlen32)
-        cur32 = lanes_of(cur, 32)
-        cur32s = cur32 if cur_search is cur else lanes_of(cur_search, 32)
-        out[32] = run_size(w32.permute(1, 2, 0), cur32, cur32s, sx32,
-                           sy32, 32)
-        seeds32 = (sx32, sy32)
-
-    return out, {16: (sx16, sy16), 32: seeds32}
+    y32, x32 = grid(32)
+    # seed: the coarse MV at the 32-block centre
+    s32 = cmv16.reshape(by16, bx16, 2)[1::2, 1::2].reshape(-1, 2)
+    sx32 = _clip(s32[:, 0], -(x32 + r + 4), (w - 32) - x32 + r + 4)
+    sy32 = _clip(s32[:, 1], -(y32 + r + 4), (h - 32) - y32 + r + 4)
+    wlen32 = 32 + 2 * r + 8
+    w32 = gather_windows_ds(ref_pad, pad, y32 + sy32 - (r + 4),
+                            x32 + sx32 - (r + 4), wlen32)
+    penx32, peny32 = pens_of(sx32, sy32)
+    out[32] = run_size(w32.permute(1, 2, 0), lanes_of(cur, 32), sx32, sy32,
+                       32, int_search_windows(w32, cur_search, penx32,
+                                              peny32, 32, side, lead=4))
+    return out, {16: (sx16, sy16), 32: (sx32, sy32)}
 
 
 # =============================================================================
