@@ -4,7 +4,12 @@
 Phases (each raises on failure; the script exits 0 only if all pass):
   1. setup: require CUDA, print the card's name and power limit, build
      every CUDA kernel (one nvcc per source, all started together) and
-     the native CABAC coder;
+     the native CABAC coder; print each kernel instance's registers,
+     spill bytes and shared memory as ptxas reported them, and the
+     search instances' SASS (VABSDIFF4 per current-row word, and per
+     window row of the unrolled walk its SADs, funnel shifts and shared
+     loads); measure the issue rate per SM clock of VABSDIFF4, SHF and
+     IMAD, with FFMA as the yardstick (csrc/probes/int_rates.cu);
   2. kernel vs plain: the window-gather kernel against its plain PyTorch
      version at the four main-path window shapes, uint8 and uint16,
      exact equality, timed beside a one-call PyTorch indexing yardstick
@@ -13,8 +18,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      8-blocks, 2040 32-blocks; side 21) on random, near-flat (ties at
      many indices) and flat windows (every candidate ties, index 0
      wins), and untimed at the odd me_range 7 (side 15, windows 38 and
-     54, rows not 4-byte aligned), exact equality, timed beside its
-     bound; every kernel timing taken 3 times in turns, with its spread;
+     54, rows not 4-byte aligned) and at the presets' extremes, me_range
+     2 and 12 (sides 5 and 25), exact equality, timed beside its bound;
+     every kernel timing taken 3 times in turns, with its spread;
   3. card == CPU: the same clips encoded on the card and on the CPU give
      byte-identical streams (64x96 1 I + 6 P at me_range 10 and at
      me_range 7, then I + 1 P at the size in CARD_CPU_SIZE);
@@ -33,9 +39,11 @@ Imports neither JAX nor the x265_tpu reference package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -65,7 +73,10 @@ SEARCH_SHAPES = (
 )
 SCAN = (1088, 1920)
 SIDE, LEAD = 21, 4
-ODD_SIDE = 15                # me_range 7: windows 38 and 54
+# untimed exactness rows at other me_ranges: (case, side)
+OTHER_SIDES = (("random_me_range_7", 15),    # windows 38/54, odd rows
+               ("random_me_range_2", 5),     # windows 28/44
+               ("random_me_range_12", 25))   # windows 48/64
 
 
 def log(msg: str) -> None:
@@ -271,7 +282,7 @@ def phase_search():
     for name, n, nb in SEARCH_SHAPES:
         by, bx = SCAN[0] // n, SCAN[1] // n
         for case, side in (("random", SIDE), ("near_flat", SIDE),
-                           ("flat", SIDE), ("random_me_range_7", ODD_SIDE)):
+                           ("flat", SIDE), *OTHER_SIDES):
             args = _search_case(rng, case.split("_me")[0], n, nb, side)
             if n == 16:
                 def kern(a=args, sd=side):
@@ -335,6 +346,90 @@ def phase_search():
     agg["bound_by"] = "operations" if agg["ops_ms"] >= agg["bytes_ms"] \
         else "bytes"
     return agg
+
+
+def print_build_report(kernels) -> None:
+    """ptxas's figures for every kernel instance, then the SASS of each
+    search instance: its VABSDIFF4 against one per current-row word of
+    its R candidates (pair: 16 rows x 4 words x R; 32-block, per lane of
+    2: 32 x 4 x R), and the unrolled walk over the window rows (from the
+    first VABSDIFF4 to the last) counted per window row: SADs, funnel
+    shifts, shared loads and all instructions."""
+    for name in kernels.sources():
+        for row in kernels.resource_usage(name):
+            print(json.dumps({"ptxas": name, **row}), flush=True)
+    for fn, ops in kernels.sass_opcodes("int_search").items():
+        m = re.search(r"int_search_kernel<(\d+), (true|false), (\d+)>", fn)
+        if not m:
+            continue
+        n, r = int(m.group(1)), int(m.group(3))
+        cnt = Counter(ops)
+        sads = [i for i, op in enumerate(ops) if op == "VABSDIFF4"]
+        walk = Counter(ops[sads[0]:sads[-1] + 1])
+        rows = r + n - 1
+        words = (16 * 4 if n == 16 else 32 * 4) * r
+        print(json.dumps({
+            "sass": f"int_search_kernel<{n}, {m.group(2)}, {r}>",
+            "vabsdiff4": cnt["VABSDIFF4"], "current_words": words,
+            "vabsdiff4_per_word": cnt["VABSDIFF4"] / words,
+            "instructions": len(ops), "walk_rows": rows,
+            "walk_per_row": {"instructions": sum(walk.values()) / rows,
+                             "vabsdiff4": walk["VABSDIFF4"] / rows,
+                             "shf": walk["SHF"] / rows,
+                             "lds": walk["LDS"] / rows},
+            "walk_top": walk.most_common(10)}), flush=True)
+
+
+RATE_OPS = ("vabsdiff4", "shf", "imad", "vabsdiff4_and_shf", "ffma")
+RATE_SASS = {"vabsdiff4": ("VABSDIFF4",), "shf": ("SHF",),
+             "imad": ("IMAD",), "vabsdiff4_and_shf": ("VABSDIFF4", "SHF"),
+             "ffma": ("FFMA",)}
+
+
+def phase_int_rates() -> None:
+    """Issue rate of the search's instructions on one SM, from the probe
+    csrc/probes/int_rates.cu: one grid of 256-thread blocks at full
+    occupancy, each thread 8 dependency chains of one instruction
+    (VABSDIFF4 with its accumulator, SHF, IMAD, VABSDIFF4 and SHF
+    interleaved, and FFMA, whose published rate is 128 lanes per clock,
+    as the yardstick). Each block reads the SM clock count (clock64) and
+    the global nanosecond timer at its start and end; the rate is the
+    grid's lanes over its whole span, in the SM clocks the blocks
+    counted. Checks in the SASS that each chain is its one
+    instruction."""
+    import ctypes
+    from x265_tpu_torch import kernels
+    iters, chains, threads = 4096, 8, 256
+    lib = kernels.load("probes/int_rates")
+    lib.int_rates_run.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    sass = {f: Counter(o)
+            for f, o in kernels.sass_opcodes("probes/int_rates").items()}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for op, name in enumerate(RATE_OPS):
+        chain = next(c for f, c in sass.items() if f"chains<{op}>" in f)
+        want = {k: chain[k] for k in RATE_SASS[name]}
+        if any(v < chains // len(want) for v in want.values()):
+            raise AssertionError(f"int_rates {name}: SASS {want}")
+        per_sm = lib.int_rates_blocks_per_sm(op)
+        grid = per_sm * sms
+        sink = torch.empty(grid * threads, dtype=torch.int32, device="cuda")
+        cycles = torch.empty(grid, dtype=torch.int64, device="cuda")
+        ns = torch.empty((grid, 2), dtype=torch.int64, device="cuda")
+        for _ in range(2):                     # the first run warms up
+            err = lib.int_rates_run(op, iters, grid, sink.data_ptr(),
+                                    cycles.data_ptr(), ns.data_ptr())
+            if err:
+                raise RuntimeError(f"int_rates {name}: CUDA error {err}")
+            torch.cuda.synchronize()
+        clock_hz = float((cycles.double() /
+                          (ns[:, 1] - ns[:, 0]).double()).mean()) * 1e9
+        span_s = float(ns[:, 1].max() - ns[:, 0].min()) * 1e-9
+        lanes = per_sm * threads * iters * chains / (span_s * clock_hz)
+        print(json.dumps({"int_rate": name, "blocks_per_sm": per_sm,
+                          "lanes_per_clock_per_sm": lanes,
+                          "warp_instructions_per_clock_per_sm": lanes / 32,
+                          "sm_clock_hz": clock_hz, "span_s": span_s,
+                          "sass": want}), flush=True)
 
 
 def phase_card_equals_cpu():
@@ -471,7 +566,9 @@ def main() -> int:
                       "card": card, "kernels": kernels.sources(),
                       "nvcc_s": nvcc_s, "native_cabac_s": gxx_s,
                       "build_s": time.perf_counter() - t0}), flush=True)
+    print_build_report(kernels)
 
+    phase_int_rates()
     gather = phase_gather()
     search = phase_search()
     log("kernel == plain at every main-path shape")

@@ -124,20 +124,32 @@ def _pens(pen, nb, rng_seed):
     return pen[:, cols].contiguous(), pen.flip(0)[:, cols].contiguous()
 
 
+# planes of the search test: (pair plane, 32-block plane). The second
+# pair gives 2610 regions and the 32-blocks 667 blocks: counts that no
+# units-per-block the kernel picks (4 or 5 regions, 1-2 32-blocks, ...)
+# divides, and more block groups than an H100 holds at once, so the
+# grid strides and its last group is ragged.
+SEARCH_PLANES = {"small": ((128, 192), (128, 192)),
+                 "strided": ((720, 928), (736, 928))}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ("random", "near_flat", "flat", "cur255",
                                   "cur0"))
-@pytest.mark.parametrize("me_range", (10, 7))
-def test_int_search_kernels_match_plain_on_gpu(case, me_range):
+@pytest.mark.parametrize("me_range", (10, 7, 2, 5, 12))
+@pytest.mark.parametrize("plane", ("small", "strided"))
+def test_int_search_kernels_match_plain_on_gpu(case, me_range, plane):
     """Both entry points of the search kernel against their plain
     versions: the pair search (16-regions and their 8-blocks) and the
-    32-block search on a 128 x 192 plane, at me_range 10 (side 21,
-    windows 44 and 60) and at the odd me_range 7 (side 15, windows 38
-    and 54, rows not 4-byte aligned). Each launch moves its counter by
-    one; ties pick the lowest index."""
+    32-block search, at every side the presets use: me_range 10 (side
+    21, windows 44 and 60), the odd me_range 7 and 5 (sides 15 and 11,
+    windows 38/54 and 34/50, rows not 4-byte aligned), and the extremes
+    me_range 2 and 12 (sides 5 and 25); on a small plane and on one whose
+    unit counts divide no units-per-block and make the grid stride. Each
+    launch moves its counter by one; ties pick the lowest index."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
-    h, w = 128, 192
+    (h, w), (h32, w32) = SEARCH_PLANES[plane]
     side = 2 * me_range + 1
     w16, cur, pen = _search_inputs(case, h, w, 16, side, seed=5)
     by16, bx16 = h // 16, w // 16
@@ -154,7 +166,7 @@ def test_int_search_kernels_match_plain_on_gpu(case, me_range):
     if case != "random" and case != "near_flat":
         assert int(got[0][1].abs().max()) == 0
         assert int(got[1][1].abs().max()) == 0
-    win, cur, pen = _search_inputs(case, h, w, 32, side, seed=32)
+    win, cur, pen = _search_inputs(case, h32, w32, 32, side, seed=32)
     penx, peny = _pens(pen, pen.shape[1], 33)
     before = port.int_search_windows.launches
     got = port.int_search_windows(win, cur, penx, peny, 32, side)
@@ -164,6 +176,48 @@ def test_int_search_kernels_match_plain_on_gpu(case, me_range):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if case in ("flat", "cur255", "cur0"):
         assert int(got[1].abs().max()) == 0
+
+
+@pytest.mark.gpu
+def test_int_search_unaligned_windows_on_gpu():
+    """Windows the kernel cannot copy 4 bytes at a time: an odd side
+    (45 and 61, one unused row and column past the searched ones) and
+    windows that start one byte past an aligned address. Both entry
+    points against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    h, w, side = 128, 192, 21
+    w16, cur, pen = _search_inputs("random", h, w, 16, side, seed=8)
+    by16, bx16 = h // 16, w // 16
+    penx8, peny8 = _pens(pen, 4 * by16 * bx16, 9)
+    penx16, peny16 = _pens(pen, by16 * bx16, 10)
+    win32, cur32, pen32 = _search_inputs("random", h, w, 32, side, seed=11)
+    penx, peny = _pens(pen32, pen32.shape[1], 12)
+    for shift in (0, 1):
+        for odd in (True, False):
+            if not odd and not shift:
+                continue
+            ws = []
+            for t in (w16, win32):
+                s = t.shape[1] + odd
+                big = torch.zeros(t.shape[0] * s * s + shift,
+                                  dtype=torch.uint8, device="cuda")
+                v = big[shift:].view(t.shape[0], s, s)
+                v[:, :t.shape[1], :t.shape[1]] = t
+                ws.append(v)
+            args = (ws[0], cur, penx8, peny8, penx16, peny16, by16, bx16,
+                    side)
+            got = port.int_search_pair_windows(*args)
+            want = port.int_search_pair_windows_plain(*args)
+            torch.cuda.synchronize()
+            for g, wt in zip((*got[0], *got[1]), (*want[0], *want[1])):
+                assert torch.equal(g, wt), (shift, odd)
+            got = port.int_search_windows(ws[1], cur32, penx, peny, 32, side)
+            want = port.int_search_windows_plain(ws[1], cur32, penx, peny,
+                                                 32, side)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]), (shift, odd)
+            assert torch.equal(got[1], want[1]), (shift, odd)
 
 
 def _encode_ippp(frames, device, me_range):
