@@ -11,28 +11,42 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      loads); measure the issue rate per SM clock of VABSDIFF4, SHF and
      IMAD, with FFMA as the yardstick (csrc/probes/int_rates.cu);
   2. kernel vs plain: the window-gather kernel against its plain PyTorch
-     version at the four main-path window shapes, uint8 and uint16,
-     exact equality, timed beside a one-call PyTorch indexing yardstick
-     and its memory bound; the integer-search kernel against its plain
-     version at the two main-path shapes (8160 16-regions with their
-     8-blocks, 2040 32-blocks; side 21) on random, near-flat (ties at
-     many indices) and flat windows (every candidate ties, index 0
-     wins), and untimed at the odd me_range 7 (side 15, windows 38 and
-     54, rows not 4-byte aligned) and at the presets' extremes, me_range
-     2 and 12 (sides 5 and 25), exact equality, timed beside its bound;
-     every kernel timing taken 3 times in turns, with its spread;
+     version at the four bench-path window shapes, uint8 and uint16, and
+     at the four fast/zerolatency-path shapes (three references stacked
+     in one plane; uint8), exact equality, timed beside a one-call
+     PyTorch indexing yardstick and its memory bound; the integer-search
+     kernel against its plain version at the two bench-path shapes
+     (8160 16-regions with their 8-blocks, 2040 32-blocks; side 21) on
+     random, near-flat (ties at many indices) and flat windows (every
+     candidate ties, index 0 wins), timed at side 21 and at the
+     fast/zerolatency path's side 11 (me_range 5, windows 34 and 50),
+     untimed at the odd me_range 7 (side 15, windows 38 and 54, rows not
+     4-byte aligned) and at the presets' extremes, me_range 2 and 12
+     (sides 5 and 25), exact equality, timed beside its bound; every
+     kernel timing taken 3 times in turns, with its spread;
   3. card == CPU: the same clips encoded on the card and on the CPU give
-     byte-identical streams (64x96 1 I + 6 P at me_range 10 and at
-     me_range 7, then I + 1 P at the size in CARD_CPU_SIZE);
-  4. the main path at full size: 1080p, 1 I (QP 29) + 24 P (CQP 32),
+     byte-identical streams (bench configuration: 64x96 1 I + 6 P at
+     me_range 10 and at me_range 7, then I + 1 P at the size in
+     CARD_CPU_SIZE; fast/zerolatency: a 64x96 strobe clip, 1 I + 6 P in
+     chunks of 2, where some blocks must predict from reference 1 or
+     later and some CTU must have SAO on, then 1080p I + 2 P);
+  4. the bench path at full size: 1080p, 1 I (QP 29) + 24 P (CQP 32),
      pipelined chunks of 8, one warm-up pass, one timed pass; in the
      timed pass the gather must have launched 4 times per P frame and
      the search 2 times;
-  5. one torch.profiler trace of a P chunk: the ten device ops that
-     take the most time, then the ops the integer search used to launch
-     (aten::sub, abs, sum) and the two kernels;
-  6. the kernels line (one JSON object), the card line, and the last
-     line {"ok": true, "device": {...}}.
+  5. one torch.profiler trace of a bench-path P chunk: the ten device
+     ops that take the most time, then the ops the integer search used
+     to launch (aten::sub, abs, sum) and the two kernels;
+  6. the fast/zerolatency path at full size (--preset fast --tune
+     zerolatency: 3 references, TMVP, SAO, me_range 5): the same clip,
+     passes and launch checks as phase 4, with the share of 8x8 cells
+     predicted from reference 1 or later and of CTUs with SAO on, then
+     one profile of its P chunk as in phase 5;
+  7. the kernels line (one JSON object; launches summed over the timed
+     passes of both paths, and per path; times and bounds per P frame
+     at the bench path's shapes, as its ms_of says), the card line, and
+     the last line
+     {"ok": true, "device": {...}}.
 Imports neither JAX nor the x265_tpu reference package.
 """
 
@@ -73,6 +87,18 @@ SEARCH_SHAPES = (
 )
 SCAN = (1088, 1920)
 SIDE, LEAD = 21, 4
+# the fast/zerolatency path at 1080p: me_range 5 (side 11) and three
+# references stacked in one plane per component (luma rows 3 x (1088 +
+# 36), cb/cr rows 2 x 3 x (544 + 26)), windows 34/50 and 17/25
+FAST_SIDE = 11
+FAST_SHAPES = (
+    ("luma_16region_34_3refs", 3 * (1088 + 36), 1920 + 36, 34, 8160),
+    ("luma_32block_50_3refs", 3 * (1088 + 36), 1920 + 36, 50, 2040),
+    ("chroma_16region_17_3refs", 2 * 3 * (544 + 26), 960 + 26, 17,
+     2 * 8160),
+    ("chroma_32block_25_3refs", 2 * 3 * (544 + 26), 960 + 26, 25,
+     2 * 2040),
+)
 # untimed exactness rows at other me_ranges: (case, side)
 OTHER_SIDES = (("random_me_range_7", 15),    # windows 38/54, odd rows
                ("random_me_range_2", 5),     # windows 28/44
@@ -108,6 +134,35 @@ def small_clip(n, h=64, w=96, seed=11):
     return [(np.roll(base, 2 * i, axis=1), cb, cr) for i in range(n)]
 
 
+def strobe_clip(n, h=64, w=96, seed=0):
+    """Two alternating random textures (tests/test_multiref.py's flicker
+    clip): frame k matches frame k - 2 exactly, so reference 1 wins
+    where the texture flips."""
+    rng = np.random.default_rng(seed)
+    tex = [rng.integers(0, 255, (h, w)).astype(np.uint8) for _ in range(2)]
+    ch = [rng.integers(100, 160, (h // 2, w // 2)).astype(np.uint8)
+          for _ in range(2)]
+    return [(tex[k % 2], ch[k % 2], ch[k % 2]) for k in range(n)]
+
+
+def bench_config(h, w, me_range=10):
+    """The bench path's configuration: CQP 32, deblock, no SAO, one
+    reference."""
+    from x265_tpu_torch.common.params import EncoderConfig
+    return EncoderConfig(width=w, height=h, qp=QP, deblock=True, sao=False,
+                         me_range=me_range)
+
+
+def fast_config(h, w):
+    """--preset fast --tune zerolatency at CQP 32: 3 references, TMVP,
+    SAO, me_range 5, CTU 32, no B frames."""
+    from x265_tpu_torch.common.params import EncoderConfig
+    cfg = EncoderConfig(width=w, height=h, qp=QP)
+    cfg.apply_preset("fast")
+    cfg.apply_tune("zerolatency")
+    return cfg
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -116,16 +171,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def encode_ippp(frames, device, timing=None, me_range=10):
-    """The main path through its user entry points: I frame at QP-3 on
-    the device recon, then pipelined P chunks. Returns the results;
-    `timing`, when a dict, receives the I frame's and the P frames'
-    wall seconds (the device is synchronized between them)."""
-    from x265_tpu_torch.common.params import EncoderConfig
+def encode_ippp(frames, device, cfg, timing=None, chunk=CHUNK):
+    """A path through its user entry points, in the configuration cfg:
+    I frame at QP-3 on the device recon, then pipelined P chunks.
+    Returns the results; `timing`, when a dict, receives the I frame's
+    and the P frames' wall seconds (the device is synchronized between
+    them)."""
     from x265_tpu_torch.enc import IntraEncoder
-    h, w = frames[0][0].shape
-    cfg = EncoderConfig(width=w, height=h, qp=QP, deblock=True, sao=False,
-                        me_range=me_range)
     enc = IntraEncoder(cfg, device=device)
     t0 = time.perf_counter()
     r0 = enc.encode_frame(*frames[0], qp=cfg.qp - 3, use_device_recon=True,
@@ -136,7 +188,7 @@ def encode_ippp(frames, device, timing=None, me_range=10):
     t0 = time.perf_counter()
     enc.ref = r0.device_ref
     enc.poc = 0
-    rs = enc.encode_pgop_pipelined(frames[1:], chunk=CHUNK)
+    rs = enc.encode_pgop_pipelined(frames[1:], chunk=chunk)
     if timing is not None:
         torch.cuda.synchronize()
         timing["p_frames_s"] = time.perf_counter() - t0
@@ -184,16 +236,30 @@ def sm_clock_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def phase_gather():
-    """Gather kernel vs plain at the main-path shapes; returns the
-    per-frame aggregate numbers for the kernels line."""
+def touched_pixels(hh, ww, ys_t, xs_t, win) -> int:
+    """Pixels of an (hh, ww) plane that at least one win x win window
+    at (ys, xs) covers: a 2-D difference array of the windows' corners,
+    summed over both axes."""
+    d = torch.zeros((hh + 1, ww + 1), dtype=torch.int32, device=ys_t.device)
+    y, x = ys_t.long(), xs_t.long()
+    one = torch.ones_like(ys_t, dtype=torch.int32)
+    for yy, xx, sign in ((y, x, 1), (y, x + win, -1), (y + win, x, -1),
+                         (y + win, x + win, 1)):
+        d.index_put_((yy, xx), sign * one, accumulate=True)
+    return int((d.cumsum(0).cumsum(1)[:hh, :ww] > 0).sum())
+
+
+def phase_gather(shapes, dtypes=(torch.uint8, torch.uint16)):
+    """Gather kernel vs plain at one path's shapes; returns the per-frame
+    aggregate numbers (uint8, the main path's dtype) for the kernels
+    line."""
     from x265_tpu_torch.ops.me_win import gather_windows, \
         gather_windows_plain
     rng = np.random.default_rng(2024)
     agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
            "max_abs_err": 0}
-    for name, hh, ww, win, nb in SHAPES:
-        for dt in (torch.uint8, torch.uint16):
+    for name, hh, ww, win, nb in shapes:
+        for dt in dtypes:
             hi = 256 if dt == torch.uint8 else 1024
             base = torch.from_numpy(rng.integers(0, hi, (hh, ww))
                                     .astype(np.int16)).cuda()
@@ -225,11 +291,15 @@ def phase_gather():
                 "library": lambda: src_i[yy, xx]})
             ms, plain_ms, lib_ms = (t[k][0] for k in
                                     ("kernel", "plain", "library"))
-            nbytes = src.numel() * src.element_size() + 8 * nb + \
+            # bytes: the source pixels the windows cover, the starts,
+            # the windows written
+            touched = touched_pixels(hh, ww, ys_t, xs_t, win)
+            nbytes = touched * src.element_size() + 8 * nb + \
                 got.numel() * got.element_size()
             bound_ms = nbytes / BYTES_PER_S * 1e3
             rec = {"shape": name, "dtype": str(dt).replace("torch.", ""),
-                   "windows": nb, "win": win, "kernel_ms": ms,
+                   "windows": nb, "win": win,
+                   "touched_share": touched / (hh * ww), "kernel_ms": ms,
                    "kernel_ms_spread": t["kernel"][1:],
                    "plain_ms": plain_ms, "library_ms": lib_ms,
                    "library_ms_spread": t["library"][1:],
@@ -268,8 +338,9 @@ def _search_case(rng, case, n, nb, side):
 
 
 def phase_search():
-    """Search kernel vs plain at the main-path shapes; returns the
-    per-frame aggregate numbers for the kernels line."""
+    """Search kernel vs plain at the main-path shapes; returns per path
+    ("bench": side 21, "fast": side 11) the per-frame aggregate numbers
+    for the kernels line."""
     from x265_tpu_torch.ops.me_win import int_search_pair_windows, \
         int_search_pair_windows_plain, int_search_windows, \
         int_search_windows_plain
@@ -277,12 +348,16 @@ def phase_search():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_hz = sm_clock_hz()
     lane_ops_per_s = sms * INT32_LANES_PER_SM * clock_hz
-    agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
-           "bytes_ms": 0.0, "max_abs_err": 0}
+    aggs = {path: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "ops_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0}
+            for path in ("bench", "fast")}
+    # (case, side, the path whose time it is, or None: untimed)
+    rows = (("random", SIDE, "bench"), ("near_flat", SIDE, None),
+            ("flat", SIDE, None), ("random_me_range_5", FAST_SIDE, "fast"),
+            *((case, side, None) for case, side in OTHER_SIDES))
     for name, n, nb in SEARCH_SHAPES:
         by, bx = SCAN[0] // n, SCAN[1] // n
-        for case, side in (("random", SIDE), ("near_flat", SIDE),
-                           ("flat", SIDE), *OTHER_SIDES):
+        for case, side, path in rows:
             args = _search_case(rng, case.split("_me")[0], n, nb, side)
             if n == 16:
                 def kern(a=args, sd=side):
@@ -310,18 +385,23 @@ def phase_search():
                                       for i in got[1::2]):
                 raise AssertionError(f"flat {name}: a tie did not pick "
                                      f"index 0")
-            agg["max_abs_err"] = max(agg["max_abs_err"], err)
+            for agg in aggs.values():
+                agg["max_abs_err"] = max(agg["max_abs_err"], err)
             rec = {"search": name, "case": case, "units": nb, "n": n,
                    "side": side, "max_abs_err": err}
-            if case == "random":
+            if path is not None:
+                agg = aggs[path]
                 t = timed({"kernel": kern, "plain": plain})
-                # bytes: windows, current plane, penalties read once,
-                # results written once; operations: one 4-byte SAD and
+                # bytes: windows, current plane (its low byte, all the
+                # search compares), penalties read once, results
+                # written once; operations: one 4-byte SAD and
                 # accumulate (__vsadu4) per 4 pixels per candidate, at
                 # one INT32 lane op per lane per clock
-                nbytes = sum(a.numel() * a.element_size() for a in args) \
-                    + sum(g.numel() * 4 for g in got)
-                px_cand = nb * n * n * SIDE * SIDE
+                win_t, cur_t, *pens_t = args
+                nbytes = win_t.numel() + cur_t.numel() + \
+                    sum(a.numel() * a.element_size() for a in pens_t) + \
+                    sum(g.numel() * 4 for g in got)
+                px_cand = nb * n * n * side * side
                 bytes_ms = nbytes / BYTES_PER_S * 1e3
                 ops_ms = px_cand / 4 / lane_ops_per_s * 1e3
                 per_px_ms = 2 * px_cand / lane_ops_per_s * 1e3
@@ -343,9 +423,10 @@ def phase_search():
                 agg["ops_ms"] += ops_ms
                 agg["bytes_ms"] += bytes_ms
             print(json.dumps(rec), flush=True)
-    agg["bound_by"] = "operations" if agg["ops_ms"] >= agg["bytes_ms"] \
-        else "bytes"
-    return agg
+    for agg in aggs.values():
+        agg["bound_by"] = "operations" \
+            if agg["ops_ms"] >= agg["bytes_ms"] else "bytes"
+    return aggs
 
 
 def print_build_report(kernels) -> None:
@@ -432,35 +513,81 @@ def phase_int_rates() -> None:
                           "sass": want}), flush=True)
 
 
+def full_size_clip(n, size=(1080, 1920)):
+    """The first n frames of the bench clip, cropped to size (h, w)."""
+    return [tuple(p[:size[0] // (1 if k == 0 else 2),
+                    :size[1] // (1 if k == 0 else 2)]
+                  for k, p in enumerate(synth_1080p(i % 3, shift=2 * i)))
+            for i in range(n)]
+
+
+def path_stats(res) -> dict:
+    """Over the P frames of one encode: the share of 8x8 cells that
+    predict from reference 1 or later, and per component the share of
+    CTUs whose SAO is on (None without SAO)."""
+    ps = [r.syntax for r in res[1:]]
+    cells = sum(s.depth8.size for s in ps)
+    older = sum(int((s.ref8 > 0).sum()) for s in ps if s.ref8 is not None)
+    sao = None
+    if ps[0].sao_params is not None:
+        ctus = sum(s.sao_params[0][..., 0].size for s in ps)
+        sao = {c: sum(int((s.sao_params[k][..., 0] != 0).sum())
+                      for s in ps) / ctus
+               for k, c in enumerate(("y", "cb", "cr"))}
+    return {"ref8_gt0_share": older / cells, "sao_on_share": sao}
+
+
 def phase_card_equals_cpu():
-    for tag, frames, me_range in (
-            ("64x96 1I+6P", small_clip(7), 10),
-            ("64x96 1I+6P me_range 7", small_clip(7), 7),
-            (f"{CARD_CPU_SIZE[0]}x{CARD_CPU_SIZE[1]} 1I+1P",
-             [tuple(p[:CARD_CPU_SIZE[0] // (1 if k == 0 else 2),
-                      :CARD_CPU_SIZE[1] // (1 if k == 0 else 2)]
-                    for k, p in enumerate(synth_1080p(i, 2 * i)))
-              for i in range(2)], 10)):
+    """Each leg encoded on the card and on the CPU; returns the card's
+    results per leg."""
+    legs = (
+        ("64x96 1I+6P", small_clip(7), bench_config, CHUNK),
+        ("64x96 1I+6P me_range 7", small_clip(7),
+         lambda h, w: bench_config(h, w, me_range=7), CHUNK),
+        (f"{CARD_CPU_SIZE[0]}x{CARD_CPU_SIZE[1]} 1I+1P",
+         full_size_clip(2, CARD_CPU_SIZE), bench_config, CHUNK),
+        ("fast/zerolatency 64x96 strobe 1I+6P chunk 2", strobe_clip(7),
+         fast_config, 2),
+        ("fast/zerolatency 1080x1920 1I+2P", full_size_clip(3),
+         fast_config, CHUNK))
+    out = {}
+    for tag, frames, make_cfg, chunk in legs:
+        h, w = frames[0][0].shape
         t0 = time.perf_counter()
-        gpu = encode_ippp(frames, "cuda", me_range=me_range)
+        gpu = encode_ippp(frames, "cuda", make_cfg(h, w), chunk=chunk)
         t1 = time.perf_counter()
-        cpu = encode_ippp(frames, "cpu", me_range=me_range)
+        cpu = encode_ippp(frames, "cpu", make_cfg(h, w), chunk=chunk)
         t2 = time.perf_counter()
         for i, (a, b) in enumerate(zip(gpu, cpu)):
             if a.bitstream != b.bitstream:
                 raise AssertionError(f"card != CPU at {tag}, frame {i}")
-        print(json.dumps({"card_equals_cpu": tag, "frames": len(gpu),
-                          "bytes": sum(len(r.bitstream) for r in gpu),
-                          "card_s": t1 - t0, "cpu_s": t2 - t1}), flush=True)
-    return gpu
+        rec = {"card_equals_cpu": tag, "frames": len(gpu),
+               "bytes": sum(len(r.bitstream) for r in gpu),
+               "card_s": t1 - t0, "cpu_s": t2 - t1}
+        if "strobe" in tag:
+            rec.update(path_stats(gpu))
+            if rec["ref8_gt0_share"] == 0:
+                raise AssertionError(f"{tag}: no block predicted from "
+                                     f"reference 1 or later")
+            if not any(rec["sao_on_share"].values()):
+                raise AssertionError(f"{tag}: no CTU with SAO on")
+        print(json.dumps(rec), flush=True)
+        out[tag] = gpu
+    return out
 
 
-def phase_main_path(first_two):
+def phase_path(path: str, make_cfg, first_frames):
+    """One path at full size: the bench clip, 1 I + 24 P in chunks of 8,
+    one warm-up pass, then a timed pass with every launch count set to
+    0 just before it and read just after. first_frames: the card's
+    frames of a card-vs-CPU leg of this configuration on the same clip,
+    which the timed pass must reproduce. Returns the launches and the
+    clip."""
     from x265_tpu_torch.ops.me_win import gather_windows, \
         int_search_pair_windows, int_search_windows
     frames = [synth_1080p(i % 3, shift=2 * i) for i in range(GOP)]
     t0 = time.perf_counter()
-    warm = encode_ippp(frames, "cuda")
+    warm = encode_ippp(frames, "cuda", make_cfg(1080, 1920))
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     counted = (gather_windows, int_search_pair_windows, int_search_windows)
@@ -468,7 +595,7 @@ def phase_main_path(first_two):
         fn.launches = 0
     split = {}
     t0 = time.perf_counter()
-    res = encode_ippp(frames, "cuda", timing=split)
+    res = encode_ippp(frames, "cuda", make_cfg(1080, 1920), timing=split)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"gather_windows": gather_windows.launches,
@@ -477,38 +604,39 @@ def phase_main_path(first_two):
     for name, per_frame in (("gather_windows", 4), ("int_search", 2)):
         if launches[name] != per_frame * (GOP - 1):
             raise AssertionError(
-                f"{name} launched {launches[name]} times in the timed "
-                f"pass, want {per_frame * (GOP - 1)}")
+                f"{path}: {name} launched {launches[name]} times in the "
+                f"timed pass, want {per_frame * (GOP - 1)}")
     if int_search_pair_windows.launches != GOP - 1:
-        raise AssertionError("the pair search did not run once per P frame")
+        raise AssertionError(f"{path}: the pair search did not run once "
+                             f"per P frame")
     if len(res) != GOP or any(len(r.bitstream) == 0 for r in res):
-        raise AssertionError("main path produced missing frames")
+        raise AssertionError(f"{path} produced missing frames")
     if any(a.bitstream != b.bitstream for a, b in zip(res, warm)):
-        raise AssertionError("two passes over one clip differ")
-    if CARD_CPU_SIZE == (1080, 1920) and \
-            [r.bitstream for r in res[:2]] != first_two:
-        raise AssertionError("full-size clip's first frames differ from "
-                             "the card-vs-CPU leg")
+        raise AssertionError(f"{path}: two passes over one clip differ")
+    if [r.bitstream for r in res[:len(first_frames)]] != \
+            [r.bitstream for r in first_frames]:
+        raise AssertionError(f"{path}: the clip's first frames differ from "
+                             f"its card-vs-CPU leg")
     nbytes = sum(len(r.bitstream) for r in res)
-    print(json.dumps({"main_path": "1080p IPPP CQP32 1I+24P chunk 8",
+    print(json.dumps({"path": path,
+                      "clip": "1080p IPPP CQP32 1I+24P chunk 8",
                       "frames": len(res), "bytes": nbytes,
                       "i_frame_bytes": len(res[0].bitstream),
                       "warmup_s": warm_s, "wall_s": wall,
                       "fps": GOP / wall, **split,
                       "p_frame_s": split["p_frames_s"] / (GOP - 1),
-                      "launches": launches}),
+                      "launches": launches, **path_stats(res)}),
           flush=True)
     return launches, frames
 
 
-def phase_profile(frames):
-    """torch.profiler over one P chunk: the ten device ops that take the
-    most time, a few watched ops, and the chunk's device-busy share."""
+def phase_profile(frames, cfg, path="bench"):
+    """torch.profiler over one P chunk of the path in configuration cfg:
+    the ten device ops that take the most time, a few watched ops, and
+    the chunk's device-busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from x265_tpu_torch.common.params import EncoderConfig
     from x265_tpu_torch.enc import IntraEncoder
-    cfg = EncoderConfig(width=1920, height=1080, qp=QP, deblock=True)
     enc = IntraEncoder(cfg, device="cuda")
     r0 = enc.encode_frame(*frames[0], qp=QP - 3, need_recon=False)
     enc.ref = r0.device_ref
@@ -531,12 +659,12 @@ def phase_profile(frames):
     # device-side rows only: an operator row repeats its kernels' time
     busy_ms = sum(self_dev_us(e) for e in kernels
                   if e.device_type == DeviceType.CUDA) / 1e3
-    print(json.dumps({"profile": f"one P chunk of {CHUNK} at 1080p",
+    print(json.dumps({"profile": f"one {path} P chunk of {CHUNK} at 1080p",
                       "wall_ms_profiled": wall_ms,
                       "device_busy_ms": busy_ms,
                       "device_busy_share": busy_ms / wall_ms}), flush=True)
     for e in kernels[:10]:
-        print(json.dumps({"top_device_op": e.key[:120],
+        print(json.dumps({"path": path, "top_device_op": e.key[:120],
                           "self_device_ms": self_dev_us(e) / 1e3,
                           "calls": e.count}), flush=True)
     # the ops the integer search used to launch, and the port's kernels
@@ -544,7 +672,7 @@ def phase_profile(frames):
         if e.key in ("aten::sub", "aten::abs", "aten::sum") or \
                 "gather_windows_kernel" in e.key or \
                 "int_search_kernel" in e.key:
-            print(json.dumps({"watched_device_op": e.key[:120],
+            print(json.dumps({"path": path, "watched_device_op": e.key[:120],
                               "self_device_ms": self_dev_us(e) / 1e3,
                               "calls": e.count}), flush=True)
 
@@ -569,31 +697,60 @@ def main() -> int:
     print_build_report(kernels)
 
     phase_int_rates()
-    gather = phase_gather()
+    gather = {"bench": phase_gather(SHAPES),
+              "fast": phase_gather(FAST_SHAPES, (torch.uint8,))}
     search = phase_search()
     log("kernel == plain at every main-path shape")
-    gpu_small = phase_card_equals_cpu()
+    legs = phase_card_equals_cpu()
     log("card == CPU")
-    launches, frames = phase_main_path([r.bitstream for r in gpu_small])
-    log(f"main path ran, launches {launches}")
-    phase_profile(frames)
+    launches = {}
+    for path, make_cfg, first in (
+            ("bench", bench_config,
+             legs[f"{CARD_CPU_SIZE[0]}x{CARD_CPU_SIZE[1]} 1I+1P"]
+             if CARD_CPU_SIZE == (1080, 1920) else []),
+            ("fast", fast_config, legs["fast/zerolatency 1080x1920 1I+2P"])):
+        launches[path], frames = phase_path(path, make_cfg, first)
+        log(f"{path} path ran, launches {launches[path]}")
+        phase_profile(frames, make_cfg(1080, 1920), path)
 
+    # per path, each kernel's per-P-frame numbers at that path's shapes
+    print(json.dumps({"kernels_per_path": {
+        path: {"gather_windows": {**{k: gather[path][k] for k in
+                                     ("ms", "plain_ms", "library_ms",
+                                      "bound_ms")},
+                                  "launches": launches[path][
+                                      "gather_windows"]},
+               "int_search": {**{k: search[path][k] for k in
+                                 ("ms", "plain_ms", "bound_ms", "bound_by")},
+                              "launches": launches[path]["int_search"]}}
+        for path in ("bench", "fast")}}), flush=True)
+    # launches: summed over both paths' timed passes; the times and the
+    # bound: per P frame at the bench path's shapes (ms_of)
+    total = {k: launches["bench"][k] + launches["fast"][k]
+             for k in ("gather_windows", "int_search")}
+    by_path = {k: {path: launches[path][k] for path in launches}
+               for k in total}
     print(json.dumps({"kernels": [{
         "name": "gather_windows", "route": "cuda",
         "source": "x265_tpu_torch/csrc/gather_windows.cu",
         "replaces": "x265_tpu/ops/me_win.py:80",
-        "launches": launches["gather_windows"],
-        "max_abs_err": gather["max_abs_err"],
-        "ms": gather["ms"], "plain_ms": gather["plain_ms"],
-        "bound_ms": gather["bound_ms"], "bound_by": "bytes",
-        "library_ms": gather["library_ms"]}, {
+        "launches": total["gather_windows"],
+        "launches_by_path": by_path["gather_windows"],
+        "ms_of": "bench path, per P frame",
+        "max_abs_err": max(g["max_abs_err"] for g in gather.values()),
+        "ms": gather["bench"]["ms"], "plain_ms": gather["bench"]["plain_ms"],
+        "bound_ms": gather["bench"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": gather["bench"]["library_ms"]}, {
         "name": "int_search", "route": "cuda",
         "source": "x265_tpu_torch/csrc/int_search.cu",
         "replaces": "x265_tpu/ops/me_win.py:308,350",
-        "launches": launches["int_search"],
-        "max_abs_err": search["max_abs_err"],
-        "ms": search["ms"], "plain_ms": search["plain_ms"],
-        "bound_ms": search["bound_ms"], "bound_by": search["bound_by"],
+        "launches": total["int_search"],
+        "launches_by_path": by_path["int_search"],
+        "ms_of": "bench path, per P frame",
+        "max_abs_err": search["bench"]["max_abs_err"],
+        "ms": search["bench"]["ms"], "plain_ms": search["bench"]["plain_ms"],
+        "bound_ms": search["bench"]["bound_ms"],
+        "bound_by": search["bench"]["bound_by"],
         "library_ms": None}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

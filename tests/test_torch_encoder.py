@@ -110,8 +110,19 @@ def test_entry_points_want_a_gpu():
                         cfg, 32)
 
 
+@pytest.mark.parametrize("field,value", [
+    ("num_refs", 2), ("tmvp", True), ("sao", True)])
+def test_ported_options_construct(field, value):
+    """Multi-reference prediction, TMVP and SAO are ported: the encoder
+    and the P-chunk path take them."""
+    from x265_tpu_torch.enc.pgop_gpu import check_pgop_config
+    cfg = EncoderConfig(width=64, height=64, qp=32)
+    setattr(cfg, field, value)
+    assert getattr(IntraEncoder(cfg, device="cpu").cfg, field) == value
+    check_pgop_config(cfg)
+
+
 @pytest.mark.parametrize("field,value,item", [
-    ("num_refs", 2, 12), ("tmvp", True, 12), ("sao", True, 13),
     ("ctu_size", 64, 14), ("aq_mode", 2, 15), ("rdoq", True, 16),
     ("nr_inter", 100, 16), ("lowpass_dct", True, 16), ("wpp", True, 17),
     ("lossless", True, 18), ("bit_depth", 10, 19), ("bframes", 3, 21),

@@ -1,8 +1,10 @@
 """The port's hand-written kernels (the window gather and the integer
-search) against their plain PyTorch versions on a CUDA card, and the
-card's stream against the CPU's at an odd me_range. This file imports
-neither JAX nor the reference package, so it runs on a machine with a
-GPU and no JAX:
+search) against their plain PyTorch versions on a CUDA card, at the
+bench path's shapes and at the fast/zerolatency path's (stacked
+references, side 11, a composed search current), and the card's stream
+against the CPU's at an odd me_range and in the fast/zerolatency
+configuration. This file imports neither JAX nor the reference package,
+so it runs on a machine with a GPU and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
@@ -220,20 +222,123 @@ def test_int_search_unaligned_windows_on_gpu():
             assert torch.equal(got[1], want[1]), (shift, odd)
 
 
-def _encode_ippp(frames, device, me_range):
+# the fast/zerolatency path at 1080p (me_range 5, 3 references): the
+# luma references stacked as (3 x (1088 + 36), 1920 + 36), the chroma
+# cb/cr rows as 2 x 3 x (544 + 26) rows of 960 + 26; windows 34 and 50
+# (luma), 17 and 25 (chroma)
+MULTIREF_LUMA = (3, 1088, 1920, 18)
+MULTIREF_CHROMA = (3, 544, 960, 13)
+
+
+@pytest.mark.gpu
+def test_gather_kernel_on_stacked_references_on_gpu():
+    """The gather on a 3-reference stacked uint8 plane at the
+    fast/zerolatency path's shapes: luma windows 34 and 50 starting in
+    every reference's segment, and the chroma windows 17 and 25 through
+    gather_chroma_windows with per-region reference rows (its starts
+    clamp over the whole stacked component), against the plain
+    version (the same call on CPU tensors)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    rng = np.random.default_rng(4)
+    nr, h, w, pad = MULTIREF_LUMA
+    seg = h + 2 * pad
+    plane = torch.from_numpy(rng.integers(0, 256, (nr * seg, w + 2 * pad))
+                             .astype(np.uint8)).cuda()
+    for win, n in ((34, 16), (50, 32)):
+        nb = (h // n) * (w // n)
+        ref = rng.integers(0, nr, nb)
+        ys = (ref * seg + rng.integers(0, seg - win + 1, nb)).astype(np.int32)
+        xs = rng.integers(0, w + 2 * pad - win + 1, nb).astype(np.int32)
+        ys[:3] = (0, seg - win, nr * seg - win)
+        ys_t, xs_t = torch.from_numpy(ys).cuda(), torch.from_numpy(xs).cuda()
+        got = port.gather_windows(plane, ys_t, xs_t, win)
+        want = port.gather_windows_plain(plane, ys_t, xs_t, win)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), win
+    nr, hc, wc_, pc = MULTIREF_CHROMA
+    cseg = hc + 2 * pc
+    cpad2 = torch.from_numpy(rng.integers(0, 256, (2, nr * cseg, wc_ + 2 * pc))
+                             .astype(np.uint8)).cuda()
+    for wc, n in ((17, 8), (25, 16)):
+        by, bx = hc // n, wc_ // n
+        reg_cy = torch.arange(by, dtype=torch.int32).repeat_interleave(bx) * n
+        reg_cx = torch.arange(bx, dtype=torch.int32).repeat(by) * n
+        nb = by * bx
+        s0y = torch.from_numpy(rng.integers(-pc, pc, nb).astype(np.int32))
+        s0x = torch.from_numpy(rng.integers(-pc, pc, nb).astype(np.int32))
+        s0y[0] = hc + 40                # past its segment and the plane
+        roff = torch.from_numpy(rng.integers(0, nr, nb).astype(np.int32)) \
+            * cseg
+        args = (pc, reg_cy, reg_cx, s0y, s0x, wc)
+        before = port.gather_windows.launches
+        got = port.gather_chroma_windows(
+            cpad2, *(a.cuda() if torch.is_tensor(a) else a for a in args),
+            row_off=roff.cuda())
+        assert port.gather_windows.launches == before + 1
+        want = port.gather_chroma_windows(cpad2.cpu(), *args, row_off=roff)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), wc
+
+
+@pytest.mark.gpu
+def test_int_search_composed_current_on_gpu():
+    """The search at side 11 (me_range 5: windows 34 and 50) on a current
+    plane composed per region, the weight-compensated current where the
+    region predicts from reference 0 and the true current elsewhere (as
+    me_all_sizes builds it with weights and several references):
+    both entry points against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    h, w, side = 720, 928, 11
+    rng = np.random.default_rng(13)
+    w16, cur, pen = _search_inputs("random", h, w, 16, side, seed=14)
+    cur_s = torch.clamp(cur * 3 // 4 + 20, 0, 255)
+    by16, bx16 = h // 16, w // 16
+    wm16 = torch.from_numpy(rng.integers(0, 2, by16 * bx16).astype(bool))
+    plane = port.search_plane(cur, cur_s, wm16.cuda(), 16)
+    assert not torch.equal(plane, cur) and not torch.equal(plane, cur_s)
+    penx8, peny8 = _pens(pen, 4 * by16 * bx16, 15)
+    penx16, peny16 = _pens(pen, by16 * bx16, 16)
+    args = (w16, plane, penx8, peny8, penx16, peny16, by16, bx16, side)
+    got = port.int_search_pair_windows(*args)
+    want = port.int_search_pair_windows_plain(*args)
+    torch.cuda.synchronize()
+    for g, wt in zip((*got[0], *got[1]), (*want[0], *want[1])):
+        assert torch.equal(g, wt)
+    h32, w32 = 736, 928
+    win, cur, pen = _search_inputs("random", h32, w32, 32, side, seed=17)
+    cur_s = torch.clamp(cur * 3 // 4 + 20, 0, 255)
+    wm32 = torch.from_numpy(rng.integers(0, 2, (h32 // 32) * (w32 // 32))
+                            .astype(bool)).cuda()
+    plane = port.search_plane(cur, cur_s, wm32, 32)
+    penx, peny = _pens(pen, pen.shape[1], 18)
+    got = port.int_search_windows(win, plane, penx, peny, 32, side)
+    want = port.int_search_windows_plain(win, plane, penx, peny, 32, side)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _encode_ippp(frames, device, me_range=10, preset=None, chunk=8):
     """I frame at QP 29 on the device recon, then pipelined P frames at
-    CQP 32, through the encoder's entry points."""
+    CQP 32, through the encoder's entry points; with preset, that preset
+    under --tune zerolatency instead of the bench configuration."""
     from x265_tpu_torch.common.params import EncoderConfig
     from x265_tpu_torch.enc import IntraEncoder
     h, w = frames[0][0].shape
-    cfg = EncoderConfig(width=w, height=h, qp=32, deblock=True, sao=False,
-                        me_range=me_range)
+    if preset is None:
+        cfg = EncoderConfig(width=w, height=h, qp=32, deblock=True,
+                            sao=False, me_range=me_range)
+    else:
+        cfg = EncoderConfig(width=w, height=h, qp=32)
+        cfg.apply_preset(preset)
+        cfg.apply_tune("zerolatency")
     enc = IntraEncoder(cfg, device=device)
     r0 = enc.encode_frame(*frames[0], qp=29, use_device_recon=True,
                           need_recon=False)
     enc.ref = r0.device_ref
     enc.poc = 0
-    return [r0] + enc.encode_pgop_pipelined(frames[1:], chunk=8)
+    return [r0] + enc.encode_pgop_pipelined(frames[1:], chunk=chunk)
 
 
 @pytest.mark.gpu
@@ -254,6 +359,25 @@ def test_card_stream_equals_cpu_at_odd_me_range():
     assert port.int_search_pair_windows.launches == before + 3
     cpu = _encode_ippp(frames, "cpu", 7)
     assert [r.bitstream for r in card] == [r.bitstream for r in cpu]
+
+
+@pytest.mark.gpu
+def test_card_stream_equals_cpu_fast_zerolatency():
+    """--preset fast --tune zerolatency (3 references, TMVP, SAO) on a
+    64x96 strobe clip, 1 I + 6 P in chunks of 2: the same bytes on the
+    card as on the CPU, some blocks predicted from reference 1 or
+    later, and some CTU with SAO on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    rng = np.random.default_rng(0)
+    tex = [rng.integers(0, 255, (64, 96)).astype(np.uint8) for _ in range(2)]
+    ch = [rng.integers(100, 160, (32, 48)).astype(np.uint8) for _ in range(2)]
+    frames = [(tex[k % 2], ch[k % 2], ch[k % 2]) for k in range(7)]
+    card = _encode_ippp(frames, "cuda", preset="fast", chunk=2)
+    cpu = _encode_ippp(frames, "cpu", preset="fast", chunk=2)
+    assert [r.bitstream for r in card] == [r.bitstream for r in cpu]
+    assert any(r.syntax.ref8 is not None for r in card[1:])
+    assert any(p[..., 0].any() for r in card[1:] for p in r.syntax.sao_params)
 
 
 def test_search_cpu_tensors_take_the_plain_version():

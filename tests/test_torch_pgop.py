@@ -81,8 +81,9 @@ def test_p_chunk_matches_reference():
             np.testing.assert_array_equal(getattr(recons[i], k),
                                           getattr(trecons[i], k),
                                           err_msg=f"frame {i} recon {k}")
-    # the carried reference is the last recon
-    np.testing.assert_array_equal(last.y.numpy(), trecons[-1].y)
+    # the carried reference stack holds the last recon in slot 0
+    assert last.y.shape == (1, h, w)
+    np.testing.assert_array_equal(last.to_recon().y, trecons[-1].y)
     # the content exercises intra-in-inter and the RQT split
     assert any(s.intra8 is not None for s in syns)
     assert any(s.tusplit8 is not None for s in syns)

@@ -34,12 +34,12 @@ spec.loader.exec_module(c)
 from x265_tpu_torch import kernels
 kernels.build(kernels.sources())
 frames = [c.synth_1080p(i % 3, shift=2 * i) for i in range(c.GOP)]
-c.encode_ippp(frames, "cuda")
+c.encode_ippp(frames, "cuda", c.bench_config(1080, 1920))
 split = {}
-c.encode_ippp(frames, "cuda", timing=split)
+c.encode_ippp(frames, "cuda", c.bench_config(1080, 1920), timing=split)
 print(json.dumps({"timed_pass": split,
                   "p_frame_s": split["p_frames_s"] / (c.GOP - 1)}), flush=True)
-c.phase_profile(frames)
+c.phase_profile(frames, c.bench_config(1080, 1920))
 '''
 
 

@@ -1,13 +1,16 @@
 """Top-level encoder orchestration for the GPU port (the x265
 Encoder::encode analog).
 
-Counterpart of the IPPP main path of x265_tpu/enc/encoder.py: an I frame
-through device analysis + the wavefront recon + deblock (SAO off), then
-P chunks through enc/pgop_gpu.py, every frame entropy-coded by the
-native CABAC and packed into Annex-B NAL units. The reference picture
-stays on the device between frames (DeviceRef). Options this package
-does not implement raise NotImplementedError naming their ROADMAP queue
-item; nothing falls back to a reduced mode.
+Counterpart of the IPPP path of x265_tpu/enc/encoder.py: an I frame
+through device analysis + the wavefront recon + deblock + SAO, then P
+chunks through enc/pgop_gpu.py (one or several references, TMVP, SAO),
+every frame entropy-coded by the native CABAC and packed into Annex-B
+NAL units. The reference picture (or the stack of the R most recent
+ones) stays on the device between frames (DeviceRef); the host keeps
+the DPB bookkeeping (references available since the IDR, their POCs)
+and the collocated picture for TMVP. Options this package does not
+implement raise NotImplementedError naming their ROADMAP queue item;
+nothing falls back to a reduced mode.
 """
 
 from __future__ import annotations
@@ -23,9 +26,11 @@ from ..bitstream.headers import (write_pps, write_slice_header, write_sps,
 from ..bitstream.nal import NalUnitType, annexb_stream
 from ..bitstream.syntax import FrameIntraSyntax
 from ..common.params import EncoderConfig, I_SLICE, P_SLICE
+from ..common.tables import lambda2_from_qp
 from ..device import resolve_device
 from ..native.entropy_native import encode_slice_native
 from ..ops.deblock import deblock_frame
+from ..ops.sao_gpu import apply_sao_t, choose_sao_chroma_t, choose_sao_t
 from .intra_analysis import analyze_chroma_gop, analyze_intra_gop
 from .intra_recon import DeviceRef, ReconFrame
 from .intra_recon_gpu import reconstruct_intra_gop_gpu
@@ -65,6 +70,8 @@ class IntraEncoder:
         self.last_src = None   # source planes of the last encoded frame
         #                        (weightp analysis compares sources)
         self.poc = 0
+        self.ref_avail = 1     # distinct pictures in the DPB since the IDR
+        self._last_p_syn = None  # the previous P frame (TMVP collocated)
 
     def headers(self) -> list[tuple[NalUnitType, bytes]]:
         cfg = self.cfg
@@ -81,7 +88,7 @@ class IntraEncoder:
                      qp: int | None = None, need_recon: bool = True,
                      qp_map: np.ndarray | None = None) -> FrameResult:
         """Encode one IDR frame: device analysis, wavefront recon,
-        deblock; the post-filter recon is kept on the device
+        deblock, SAO; the post-filter recon is kept on the device
         (FrameResult.device_ref) and downloaded only on need_recon."""
         cfg = self.cfg
         if not use_device_recon:
@@ -110,6 +117,18 @@ class IntraEncoder:
         if cfg.deblock:
             dy, dcb, dcr = deblock_frame(dy, dcb, dcr, depth8[0],
                                          cfg.ctu_size, qp, cfg.bit_depth)
+        sao_params = None
+        if cfg.sao:
+            lam2 = float(lambda2_from_qp(qp))
+            oy, ocb, ocr = (p[0].to(torch.int32) for p in (yp, cbp, crp))
+            p_y = choose_sao_t(oy, dy, cfg.ctu_size, qp, cfg.bit_depth, lam2)
+            p_cb, p_cr = choose_sao_chroma_t(ocb, dcb, ocr, dcr,
+                                             cfg.ctu_size // 2, qp,
+                                             cfg.bit_depth, lam2)
+            dy = apply_sao_t(dy, p_y, cfg.ctu_size, cfg.bit_depth)
+            dcb = apply_sao_t(dcb, p_cb, cfg.ctu_size // 2, cfg.bit_depth)
+            dcr = apply_sao_t(dcr, p_cr, cfg.ctu_size // 2, cfg.bit_depth)
+            sao_params = tuple(p.cpu().numpy() for p in (p_y, p_cb, p_cr))
         device_ref = DeviceRef(*(p.to(torch.uint8).contiguous()
                                  for p in (dy, dcb, dcr)))
         recon = device_ref.to_recon() if need_recon else None
@@ -119,7 +138,8 @@ class IntraEncoder:
             2, syn.depth8, syn.coeff_y, syn.coeff_cb, syn.coeff_cr,
             w, h, cfg.log2_ctu, cfg.log2_min_cu, init_states(I_SLICE, qp),
             mode8=syn.mode8, sign_hiding=cfg.sign_hiding, cmode8=syn.cmode8,
-            nxn8=syn.nxn8, mode4=syn.mode4, slice_qp=qp)
+            nxn8=syn.nxn8, mode4=syn.mode4, sao_params=sao_params,
+            slice_qp=qp)
         sw.write_bytes(payload)
         if tail_bits:
             sw.write(tail_val, tail_bits)
@@ -131,6 +151,8 @@ class IntraEncoder:
         nals.append((NalUnitType.IDR_W_RADL, sw.get_bytes(), b""))
         stream = annexb_stream(nals)
         self.frame_count += 1
+        self.ref_avail = 1           # the IDR resets the DPB
+        self._last_p_syn = None
         return FrameResult(bitstream=stream, recon=recon, syntax=syn,
                            bits=len(stream) * 8, poc=0, ftype="I",
                            device_ref=device_ref)
@@ -147,29 +169,55 @@ class IntraEncoder:
     def _emit_p_frames(self, syns, recons, qp: int, poc_step: int = 1,
                        weights_hdr=None) -> list[FrameResult]:
         """Slice headers + native CABAC + NAL packaging for a collected
-        P chunk."""
+        P chunk, with the DPB bookkeeping: the slice lists min(R,
+        pictures since the IDR) references, its refIdx are clamped to
+        them (the device's duplicate slots hold the same pixels), and
+        with TMVP the previous P frame is the collocated picture."""
         cfg = self.cfg
         w, h = cfg.width_padded, cfg.height_padded
+        nrefs = cfg.num_refs
         results = []
         for i, syn in enumerate(syns):
             self.poc += poc_step
-            syn.num_ref = 1
+            avail = max(1, min(nrefs, self.ref_avail))
+            syn.num_ref = avail
             syn.poc = self.poc
-            syn.ref_pocs = (self.poc - poc_step,)
+            syn.ref_pocs = tuple(self.poc - poc_step * (k + 1)
+                                 for k in range(avail))
             syn.max_merge = max(syn.max_merge, cfg.max_merge)
+            if syn.ref8 is not None:
+                syn.ref8 = np.minimum(syn.ref8, avail - 1).astype(np.uint8)
+                if not syn.ref8.any():
+                    syn.ref8 = None
+            col = None
+            if cfg.tmvp and self._last_p_syn is not None:
+                prev = self._last_p_syn
+                syn.col_mv = prev.mv8
+                syn.col_ref = prev.ref8 if prev.ref8 is not None \
+                    else np.zeros_like(prev.depth8, np.uint8)
+                syn.col_inter = np.ones_like(prev.depth8, bool) \
+                    if prev.intra8 is None else ~prev.intra8
+                syn.col_poc = prev.poc
+                syn.col_ref_pocs = prev.ref_pocs or (prev.poc - 1,)
+                col = (prev.mv8, syn.col_ref, syn.col_inter.astype(np.uint8),
+                       prev.poc, syn.col_ref_pocs)
+            self.ref_avail = min(nrefs, avail + 1)
             sw = write_slice_header(
                 cfg, P_SLICE, idr=False, poc=self.poc,
                 ref_delta_poc=poc_step, max_merge=syn.max_merge,
                 slice_qp=qp,
                 weights=None if weights_hdr is None else weights_hdr[i],
-                num_ref=1, tmvp=False)
+                num_ref=syn.num_ref, tmvp=cfg.tmvp)
             payload, tail_val, tail_bits = encode_slice_native(
                 1, syn.depth8, syn.coeff_y, syn.coeff_cb, syn.coeff_cr,
                 w, h, cfg.log2_ctu, cfg.log2_min_cu,
                 init_states(P_SLICE, qp), mv8=syn.mv8,
                 max_merge=syn.max_merge, sign_hiding=cfg.sign_hiding,
-                slice_qp=qp, mode8=syn.mode8, intra8=syn.intra8,
-                tusplit8=syn.tusplit8, rqt_inter=cfg.rqt_inter)
+                sao_params=syn.sao_params, slice_qp=qp, mode8=syn.mode8,
+                intra8=syn.intra8, tusplit8=syn.tusplit8,
+                rqt_inter=cfg.rqt_inter, ref8=syn.ref8,
+                num_ref=syn.num_ref, ref_pocs_l0=syn.ref_pocs, poc=syn.poc,
+                tmvp=cfg.tmvp, col=col)
             sw.write_bytes(payload)
             if tail_bits:
                 sw.write(tail_val, tail_bits)
@@ -177,6 +225,7 @@ class IntraEncoder:
             stream = annexb_stream([(NalUnitType.TRAIL_R, sw.get_bytes(),
                                      b"")])
             self.frame_count += 1
+            self._last_p_syn = syn     # TMVP collocated for the next P
             results.append(FrameResult(bitstream=stream, recon=recons[i],
                                        syntax=syn, bits=len(stream) * 8,
                                        poc=self.poc, ftype="P"))
@@ -192,6 +241,8 @@ class IntraEncoder:
                           for f in frames]))
 
     def _submit(self, frames, qp: int, need_recon: bool):
+        if self.ref.y.ndim != 3:
+            self.ref_avail = 1       # a single picture: 1 distinct ref
         wps, wvecs = self._pgop_weights(frames)
         pend = submit_pgop_gpu(*self._stack(frames), self.ref, self.cfg, qp,
                                need_recon=need_recon,

@@ -1,14 +1,17 @@
 """P-frame device pipeline: an IPPP chunk frame after frame on the GPU.
 
-Counterpart of x265_tpu/enc/pgop_tpu.py for the main-path options
-(single reference, CTU 32, deblock, no SAO, no dQP, sign hiding, RQT
-depth 1, weightp, psy-rd, intra-in-inter). The reference expresses the
-chain as one lax.scan; here it is a Python loop whose body does, all
-on the device: coarse quarter-res search -> windowed ME for every block
-of every size (ops/me_win.py, on the window-gather kernel) -> windowed
-chroma MC -> intra 8x8 estimate -> MC + transform + quant + recon at
-every size with a leaf-RDO depth decision -> intra-in-inter -> in-loop
-deblock on the coded crop. submit_pgop_gpu enqueues a chunk and
+Counterpart of x265_tpu/enc/pgop_tpu.py for CTU 32 without dQP: one or
+several references (multi-reference selection from the coarse pass),
+deblock, SAO, sign hiding, RQT depth 1, weightp, psy-rd,
+intra-in-inter. The reference expresses the chain as one lax.scan; here
+it is a Python loop whose body does, all on the device: coarse
+quarter-res search (one per reference) -> windowed ME for every block
+of every size (ops/me_win.py, on the window-gather and integer-search
+kernels) -> windowed chroma MC -> intra 8x8 estimate -> MC + transform
++ quant + recon at every size with a leaf-RDO depth decision ->
+intra-in-inter -> in-loop deblock and SAO on the coded crop. With R
+references the carried reference is the stack of the R most recent
+pictures. submit_pgop_gpu enqueues a chunk and
 returns before the device finishes it; collect_pgop_gpu downloads
 decision fields, coefficient planes (whole, no compaction) and, on
 request, the recon.
@@ -34,10 +37,11 @@ from ..device import resolve_device
 from ..ops.deblock import deblock_chroma_t, deblock_luma_t
 from ..ops.intra import intra_pred_all_modes, intra_pred_single_mode
 from ..ops.me import _downsample4, bitlen as _bitlen
-from ..ops.me_win import (apply_weight_acc, apply_weight_fullpel,
-                          chroma_mc_from_windows, gather_chroma_windows,
-                          inverse_weight_plane, me_all_sizes, pad_ref,
-                          seed_floor_off)
+from ..ops.me_win import (_argmin_first, apply_weight_acc,
+                          apply_weight_fullpel, chroma_mc_from_windows,
+                          gather_chroma_windows, inverse_weight_plane,
+                          me_all_sizes, pad_ref, seed_floor_off)
+from ..ops.sao_gpu import apply_sao_t, choose_sao_chroma_t, choose_sao_t
 from ..ops.satd import sa8d_batch, sa8d_nxn_lanes
 from ..ops.transforms import (dct_batch, dct_lanes, dequant_batch,
                               dequant_lanes, idct_batch, idct_lanes,
@@ -117,13 +121,19 @@ def _median3_mv(mv: torch.Tensor) -> torch.Tensor:
 
 def _chroma_preds_windowed(cpad2, pc, refcb, refcr, mvs, seeds, radius,
                            h, w, bit_depth, wvec=None,
-                           weight_denom: int = 6):
-    """cpad2: (2, Hc+2pc, Wc+2pc) stacked padded uint8 chroma refs;
-    mvs: {n: (B, 2) qpel}; seeds: {16: (sx, sy), 32: (sx, sy)} clamped
-    full-pel seeds. MVs from the windowed search lie within seed +-
-    radius (qpel +-3/4); zero-MV winners take the co-located blocks.
-    wvec: explicit weights, cb from wvec[2:4], cr from wvec[4:6].
-    Returns {n: (pred_cb, pred_cr) (B, cn, cn)}."""
+                           weight_denom: int = 6, ref16=None, ref32=None,
+                           cstride: int = 0, zplanes=None):
+    """cpad2: (2, Hc+2pc, Wc+2pc) stacked padded uint8 chroma refs, or
+    with multi-reference prediction (2, R*(Hc+2pc), Wc+2pc) with
+    cstride = Hc+2pc rows per reference and ref16/ref32 the per-region
+    selections; mvs: {n: (B, 2) qpel}; seeds: {16: (sx, sy), 32: (sx,
+    sy)} clamped full-pel seeds. MVs from the windowed search lie within
+    seed +- radius (qpel +-3/4); zero-MV winners take the co-located
+    blocks, of zplanes[{16, 32}] = (cb, cr) (the selected references'
+    planes) when given, else of refcb/refcr. wvec: explicit weights, cb
+    from wvec[2:4], cr from wvec[4:6], on reference 0 only when
+    multi-reference (the others take the neutral weight, which rounds
+    as the default path). Returns {n: (pred_cb, pred_cr) (B, cn, cn)}."""
     weighted = wvec is not None
     dev = refcb.device
     r = radius
@@ -134,22 +144,31 @@ def _chroma_preds_windowed(cpad2, pc, refcb, refcr, mvs, seeds, radius,
         xs = torch.arange(bx, dtype=torch.int32, device=dev) * step
         return ys.repeat_interleave(bx), xs.repeat(by)
 
+    def row_off(sel):
+        return 0 if sel is None else sel * cstride
+
     by16, bx16 = h // 16, w // 16
     yc16, xc16 = grid(16, 8)
     sx16, sy16 = seeds[16]
     s0x16 = seed_floor_off(sx16, r)
     s0y16 = seed_floor_off(sy16, r)
     wc16 = r + 12
-    win16 = gather_chroma_windows(cpad2, pc, yc16, xc16, s0y16, s0x16, wc16)
+    win16 = gather_chroma_windows(cpad2, pc, yc16, xc16, s0y16, s0x16, wc16,
+                                  row_off=row_off(ref16))
 
     def zero_blocks(plane, cn):
         cy, cx = plane.shape
         return plane.reshape(cy // cn, cn, cx // cn, cn) \
             .permute(0, 2, 1, 3).reshape(-1, cn, cn).to(torch.int32)
 
+    # the 2x2 sub-blocks of each 16-region share its window
+    by8, bx8 = h // 8, w // 8
+    parent = ((torch.arange(by8, device=dev) // 2)[:, None] * bx16 +
+              (torch.arange(bx8, device=dev) // 2)[None, :]).reshape(-1)
     out = {}
     for n, cn in ((8, 4), (16, 8), (32, 16)):
         mv = mvs[n]
+        refsel = ref16
         if n == 32:
             yc32, xc32 = grid(32, 16)
             sx32, sy32 = seeds[32]
@@ -157,42 +176,52 @@ def _chroma_preds_windowed(cpad2, pc, refcb, refcr, mvs, seeds, radius,
             s0ye = seed_floor_off(sy32, r)
             nshift = r + 2
             win_b = gather_chroma_windows(cpad2, pc, yc32, xc32, s0ye, s0xe,
-                                          r + 20)
+                                          r + 20, row_off=row_off(ref32))
             rel_y = rel_x = 0
+            refsel = ref32
         elif n == 16:
             # rel == 0: offsets span only r+2 shifts
             win_b, nshift = win16, r + 2
             s0ye, s0xe = s0y16, s0x16
             rel_y = rel_x = 0
         else:
-            # the 2x2 sub-blocks of each 16-region share its window
-            by8, bx8 = h // 8, w // 8
-            parent = (torch.arange(by8, device=dev) // 2)[:, None] * bx16 + \
-                (torch.arange(bx8, device=dev) // 2)[None, :]
-            parent = parent.reshape(-1)
             win_b, nshift = win16[parent], r + 6
             s0ye, s0xe = s0y16[parent], s0x16[parent]
             rel_y = ((torch.arange(by8, dtype=torch.int32, device=dev) % 2)
                      .repeat_interleave(bx8)) * 4
             rel_x = ((torch.arange(bx8, dtype=torch.int32, device=dev) % 2)
                      .repeat(by8)) * 4
+            if refsel is not None:
+                refsel = refsel[parent]
         zero = (mv[:, 0] == 0) & (mv[:, 1] == 0)
         offy = torch.clamp(rel_y + (mv[:, 1] >> 3) - 1 - s0ye, 0, nshift - 1)
         offx = torch.clamp(rel_x + (mv[:, 0] >> 3) - 1 - s0xe, 0, nshift - 1)
         pcb, pcr = chroma_mc_from_windows(
             win_b, offy, offx, mv[:, 0] & 7, mv[:, 1] & 7, cn, nshift,
             bit_depth, raw=weighted)
-        zcb = zero_blocks(refcb, cn)
-        zcr = zero_blocks(refcr, cn)
+        zsrc = (refcb, refcr) if zplanes is None else \
+            zplanes[32 if n == 32 else 16]
+        zcb = zero_blocks(zsrc[0], cn)
+        zcr = zero_blocks(zsrc[1], cn)
         if weighted:
-            pcb = apply_weight_acc(pcb, wvec[2], wvec[3], weight_denom,
-                                   bit_depth)
-            pcr = apply_weight_acc(pcr, wvec[4], wvec[5], weight_denom,
-                                   bit_depth)
-            zcb = apply_weight_fullpel(zcb, wvec[2], wvec[3], weight_denom,
-                                       bit_depth)
-            zcr = apply_weight_fullpel(zcr, wvec[4], wvec[5], weight_denom,
-                                       bit_depth)
+            wm = None if refsel is None else (refsel == 0)[:, None, None]
+
+            def wsel(acc, wv_w, wv_o):
+                wv = apply_weight_acc(acc, wv_w, wv_o, weight_denom,
+                                      bit_depth)
+                return wv if wm is None else torch.where(
+                    wm, wv, apply_weight_acc(acc, 1 << weight_denom, 0,
+                                             weight_denom, bit_depth))
+
+            def wsel_fp(blk, wv_w, wv_o):
+                wv = apply_weight_fullpel(blk, wv_w, wv_o, weight_denom,
+                                          bit_depth)
+                return wv if wm is None else torch.where(wm, wv, blk)
+
+            pcb = wsel(pcb, wvec[2], wvec[3])
+            pcr = wsel(pcr, wvec[4], wvec[5])
+            zcb = wsel_fp(zcb, wvec[2], wvec[3])
+            zcr = wsel_fp(zcr, wvec[4], wvec[5])
         zm = zero[:, None, None]
         out[n] = (torch.where(zm, zcb, pcb), torch.where(zm, zcr, pcr))
     return out
@@ -231,12 +260,14 @@ def _coeff_bits_est(cf: torch.Tensor, by: int, bx: int, k: int,
 
 def _rd_depth_decision(sse: dict, bits: dict, mvs: dict, lam2: float,
                        real_h: int, real_w: int, h: int, w: int,
-                       hdr_bits: float, split_bits: float, alt8_cost=None):
+                       hdr_bits: float, split_bits: float, refs: dict,
+                       alt8_cost=None):
     """Bottom-up split-vs-keep argmin over true RD costs. Returns depth8
-    (n8y, n8x), mv8 (n8y, n8x, 2), intra_pref (n8y, n8x) and the 8x8
-    inter leaf cost. CUs over the coded edge are forced to split.
-    alt8_cost: RD cost of the 8x8 INTRA candidate per min-cell; where
-    it beats the inter leaf it replaces the 8-level cost."""
+    (n8y, n8x), mv8 (n8y, n8x, 2), ref8 (n8y, n8x), intra_pref (n8y,
+    n8x) and the 8x8 inter leaf cost. CUs over the coded edge are forced
+    to split. refs: per-size (by, bx) L0 refIdx grids. alt8_cost: RD
+    cost of the 8x8 INTRA candidate per min-cell; where it beats the
+    inter leaf it replaces the 8-level cost."""
     dev = sse[8].device
     big = 1e18
     cost = {}
@@ -270,10 +301,17 @@ def _rd_depth_decision(sse: dict, bits: dict, mvs: dict, lam2: float,
 
     mv8 = torch.where(k32[..., None], up_mv(32, 4),
                       torch.where(k16[..., None], up_mv(16, 2), up_mv(8, 1)))
+
+    def up_ref(n, k):
+        return _up(refs[n].reshape(h // n, w // n), k)[:n8y, :n8x]
+
+    ref8 = torch.where(k32, up_ref(32, 4),
+                       torch.where(k16, up_ref(16, 2), up_ref(8, 1)))
     if intra_pref is None:
         intra_pref = torch.zeros((n8y, n8x), dtype=torch.bool, device=dev)
     inter_c8 = sse[8] + lam2 * (bits[8] + hdr_bits)
-    return depth8, mv8.to(torch.int32), intra_pref[:n8y, :n8x], inter_c8
+    return depth8, mv8.to(torch.int32), ref8, intra_pref[:n8y, :n8x], \
+        inter_c8
 
 
 # =============================================================================
@@ -311,14 +349,15 @@ def _blk_sse(rec, orig, by, bx, k):
 
 
 def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
-                  sign_hiding, real_h, real_w, preds, cpreds,
-                  psy_rd=0.0, rqt=False, alt8_cost=None):
+                  sign_hiding, real_h, real_w, preds, cpreds, refs_grid,
+                  nrefs: int, psy_rd=0.0, rqt=False, alt8_cost=None):
     """MC + residual coding at EVERY CU size with that size's own MV
     field (predictions from the windowed ME), leaf-RDO depth decision
     from the true recon SSE + estimated bits, then compose by depth.
     RQT: 16/32 CUs may code four half-size TUs on the same prediction.
-    Returns (rec_y, cf_y, rec_cb, cf_cb, rec_cr, cf_cr, depth8, mv8,
-    tusplit8, intra_pref, inter_c8)."""
+    refs_grid: per-size refIdx grids among nrefs references, whose
+    ref_idx bins enter the bits. Returns (rec_y, cf_y, rec_cb, cf_cb, rec_cr,
+    cf_cr, depth8, mv8, tusplit8, ref8, intra_pref, inter_c8)."""
     dev = oy.device
     calib = calib_for_qp(qp)
     cal3 = calib[:3]
@@ -407,6 +446,10 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
             planes[n] = tuple(
                 torch.where(my if i < 2 else mc, pl_s[i], planes[n][i])
                 for i in range(6))
+        if nrefs > 1:
+            # ref_idx_l0 truncated-rice bins: r + 1, capped at nrefs - 1
+            rg = refs_grid[n].reshape(by, bx)
+            bits[n] = bits[n] + torch.clamp(rg + 1, max=nrefs - 1).to(F32)
 
     if psy_rd > 0:
         # psy-rd (x265 rdcost.h:30): distortion += lambda * psyRd * |dE|
@@ -420,10 +463,10 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
             psy_n = de.reshape(h // n, k, w // n, k).sum((1, 3))
             sse[n] = sse[n] + scale * psy_n
 
-    depth8, mv8, intra_pref, inter_c8 = _rd_depth_decision(
+    depth8, mv8, ref8, intra_pref, inter_c8 = _rd_depth_decision(
         sse, bits, mvs, lam2, real_h, real_w, h, w,
         hdr_bits=float(calib[3]), split_bits=float(calib[4]),
-        alt8_cost=alt8_cost)
+        refs=refs_grid, alt8_cost=alt8_cost)
 
     n8y, n8x = h // 8, w // 8
     zb = torch.zeros((n8y, n8x), dtype=torch.bool, device=dev)
@@ -439,7 +482,7 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
         mpx_c = _up(m8, 4)
         for i, p in enumerate(planes[n]):
             out[i] = torch.where(mpx if i < 2 else mpx_c, p, out[i])
-    return out + [depth8, mv8, tusplit8, intra_pref, inter_c8]
+    return out + [depth8, mv8, tusplit8, ref8, intra_pref, inter_c8]
 
 
 # =============================================================================
@@ -794,21 +837,70 @@ def _inter_bs_maps_t(depth8, mv8, cf_y, ctu: int, intra8=None,
 # one P frame
 # =============================================================================
 
-def _pgop_frame(ry, rcb, rcr, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
+def _select_refs(oy_s, ry_s, rcb_s, rcr_s, lam_i: int, coarse_pen: int,
+                 nrefs: int):
+    """Multi-reference selection (x265 --ref N, search.cpp:2354 recast):
+    the quarter-res coarse search against every reference, each
+    16-region (32-block) takes the reference of least coarse cost plus
+    an 8*lambda margin per ref_idx bin, first index on ties (so the
+    duplicate slots of a young DPB, identical to slot 0, are never
+    chosen). Returns (cmv16, cmv32, ref16 grid, ref32 grid, zero-MV
+    planes of the selected references: luma {16, 32}, chroma {16: (cb,
+    cr), 32: (cb, cr)})."""
+    ds_cur = _downsample4(oy_s)
+    mv_list, cost_list = [], []
+    for rr in range(nrefs):
+        mv_r, cost_r = _coarse_search_rolled(ds_cur, _downsample4(ry_s[rr]),
+                                             lam_pen=coarse_pen)
+        cost_list.append(cost_r + 8 * lam_i * min(rr + 1, nrefs - 1))
+        mv_list.append(_median3_mv(mv_r))
+    costs = torch.stack(cost_list)                  # (R, by16, bx16)
+    mvsr = torch.stack(mv_list)                     # (R, by16, bx16, 2)
+    _, ref16 = _argmin_first(costs)
+    by16, bx16 = costs.shape[1:]
+    c32 = costs.reshape(nrefs, by16 // 2, 2, bx16 // 2, 2) \
+        .sum((2, 4), dtype=torch.int32)
+    _, ref32 = _argmin_first(c32)
+
+    def take(stack, sel):
+        """stack[sel[...], ...] per cell of sel."""
+        idx = sel.long()[None]
+        if stack.dim() == idx.dim() + 1:
+            idx = idx[..., None].expand(1, *stack.shape[1:])
+        return torch.gather(stack, 0, idx)[0]
+
+    cmv16 = take(mvsr, ref16) * 4
+    cmv32 = take(mvsr[:, 1::2, 1::2], ref32).reshape(-1, 2) * 4
+
+    def compose(planes_s, sel, blk):
+        # with one reference every selection is slot 0
+        return planes_s[0] if nrefs == 1 else take(planes_s, _up(sel, blk))
+
+    zy = {16: compose(ry_s, ref16, 16), 32: compose(ry_s, ref32, 32)}
+    zc = {16: (compose(rcb_s, ref16, 8), compose(rcr_s, ref16, 8)),
+          32: (compose(rcb_s, ref32, 16), compose(rcr_s, ref32, 16))}
+    return cmv16, cmv32, ref16, ref32, zy, zc
+
+
+def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
                 bit_depth: int, real_h: int, real_w: int, ctu: int,
-                deblock: bool, sign_hiding: bool, me_range: int,
-                intra_ii: bool, psy_rd: float, weight_denom: int, rqt: bool):
-    """One P frame. ry/rcb/rcr: int32 reference planes and oy/ocb/ocr
-    int32 source planes at the scan size (32-multiples, edge-padded);
-    wvec: (6,) int32 weights or None. Returns (fields, next reference
-    planes): fields = (depth8, mv8, cf_y, cf_cb, cf_cr, intra8, imode8,
-    tusplit8, rec_y, rec_cb, rec_cr)."""
+                deblock: bool, sao: bool, sign_hiding: bool, me_range: int,
+                intra_ii: bool, psy_rd: float, weight_denom: int, rqt: bool,
+                nrefs: int):
+    """One P frame. refs: (ry, rcb, rcr) (nrefs, ...) int32 stacks of
+    the nrefs most recent reference pictures at the scan size
+    (32-multiples, edge-padded), slot 0 the newest; oy/ocb/ocr int32
+    source planes at the scan size; wvec: (6,) int32 weights or None.
+    Returns (fields, next references): fields = (depth8, mv8, cf_y,
+    cf_cb, cf_cr, intra8, imode8, tusplit8, ref8, sao, rec_y, rec_cb,
+    rec_cr), sao (3, ncty, nctx, 6) int32 or None."""
     dev = oy.device
     lam = float(lambda_from_qp(qp))
     lam2 = float(lambda2_from_qp(qp))
     h, w = oy.shape
     rh, rw = real_h, real_w
     calib = calib_for_qp(qp)
+    ry_s, rcb_s, rcr_s = refs
 
     # --- dense hierarchical ME: one window gather per 16-region (n=8
     # and n=16) + one per 32-block
@@ -819,23 +911,32 @@ def _pgop_frame(ry, rcb, rcr, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
     weighted = wvec is not None
     oy_s = inverse_weight_plane(oy, wvec[0], wvec[1], weight_denom,
                                 bit_depth) if weighted else oy
-    cmv, _ = _coarse_search_rolled(_downsample4(oy_s), _downsample4(ry),
-                                   lam_pen=coarse_pen)
-    cmv16 = _median3_mv(cmv) * 4
-    ry_pad = pad_ref(ry.to(torch.uint8), pad_y)
+    cmv16, cmv32, ref16, ref32, zy, zc = _select_refs(
+        oy_s, ry_s, rcb_s, rcr_s, lam_i, coarse_pen, nrefs)
+    # the references stacked vertically, one padded plane per component
+    ry_pad = torch.cat([pad_ref(p.to(torch.uint8), pad_y) for p in ry_s])
+    cpad2 = torch.stack([
+        torch.cat([pad_ref(p.to(torch.uint8), pad_c) for p in planes])
+        for planes in (rcb_s, rcr_s)])
+    refs_grid = {8: _up(ref16, 2)[:h // 8, :w // 8], 16: ref16, 32: ref32}
+    # the selections; with one reference they are all 0, which None
+    # says without the weights' per-block masks
+    sel = dict(ref16=ref16.reshape(-1), ref32=ref32.reshape(-1)) \
+        if nrefs > 1 else {}
     meres, seeds = me_all_sizes(oy, ry_pad, cmv16, lam_i, radius=me_range,
                                 pad=pad_y, bit_depth=bit_depth,
                                 cur_search=oy_s if weighted else None,
-                                wvec=wvec, weight_denom=weight_denom)
+                                wvec=wvec, weight_denom=weight_denom,
+                                ref_stride=h + 2 * pad_y, cmv32=cmv32,
+                                zero_planes=zy, **sel)
     mvs = {n: meres[n][0] for n in SIZES}
     preds = {n: meres[n][2] for n in SIZES}
 
     # --- windowed chroma predictions for every size
-    cpad2 = torch.stack([pad_ref(rcb.to(torch.uint8), pad_c),
-                         pad_ref(rcr.to(torch.uint8), pad_c)])
-    cpreds = _chroma_preds_windowed(cpad2, pad_c, rcb, rcr, mvs, seeds,
-                                    me_range, h, w, bit_depth, wvec=wvec,
-                                    weight_denom=weight_denom)
+    cpreds = _chroma_preds_windowed(
+        cpad2, pad_c, rcb_s[0], rcr_s[0], mvs, seeds, me_range, h, w,
+        bit_depth, wvec=wvec, weight_denom=weight_denom,
+        cstride=h // 2 + 2 * pad_c, zplanes=zc, **sel)
 
     # --- intra candidate estimate (orig refs) so intra competes in the
     # depth decision; a 1.25x margin for its optimism
@@ -848,10 +949,10 @@ def _pgop_frame(ry, rcb, rcr, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
         icost8_m = None
 
     (rec_y, cf_y, rec_cb, cf_cb, rec_cr, cf_cr, depth8, mv8, tusplit8,
-     intra_pref, inter_c8) = _mc_recon_all(
+     ref8, intra_pref, inter_c8) = _mc_recon_all(
         oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth, sign_hiding, rh, rw,
-        preds=preds, cpreds=cpreds, psy_rd=psy_rd, rqt=rqt,
-        alt8_cost=icost8_m)
+        preds=preds, cpreds=cpreds, refs_grid=refs_grid, nrefs=nrefs,
+        psy_rd=psy_rd, rqt=rqt, alt8_cost=icost8_m)
 
     if intra_ii:
         (rec_y, rec_cb, rec_cr, cf_y, cf_cb, cf_cr, intra8,
@@ -882,12 +983,25 @@ def _pgop_frame(ry, rcb, rcr, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
                                      bit_depth)
             rcr_c = deblock_chroma_t(rcr_c.contiguous(), vbs, hbs, qp,
                                      bit_depth)
+    sao_p = None
+    if sao:
+        p_y = choose_sao_t(oy[:rh, :rw], ry_c, ctu, qp, bit_depth, lam2)
+        p_cb, p_cr = choose_sao_chroma_t(
+            ocb[:rh // 2, :rw // 2], rcb_c, ocr[:rh // 2, :rw // 2], rcr_c,
+            ctu // 2, qp, bit_depth, lam2)
+        ry_c = apply_sao_t(ry_c, p_y, ctu, bit_depth)
+        rcb_c = apply_sao_t(rcb_c, p_cb, ctu // 2, bit_depth)
+        rcr_c = apply_sao_t(rcr_c, p_cr, ctu // 2, bit_depth)
+        sao_p = torch.stack([p_y, p_cb, p_cr])
 
-    # --- re-pad the filtered picture as the next reference
-    nxt = (edge_pad(ry_c, h, w), edge_pad(rcb_c, h // 2, w // 2),
+    # --- re-pad the filtered picture as the next reference: it enters
+    # slot 0 and the oldest drops out
+    rec = (edge_pad(ry_c, h, w), edge_pad(rcb_c, h // 2, w // 2),
            edge_pad(rcr_c, h // 2, w // 2))
+    nxt = tuple(torch.cat([p[None], s_[:-1]]) for p, s_ in zip(rec, refs))
     fields = (depth8.to(torch.uint8), mv8, cf_y, cf_cb, cf_cr,
-              intra8.to(torch.uint8), imode8, tusplit8.to(torch.uint8)) + nxt
+              intra8.to(torch.uint8), imode8, tusplit8.to(torch.uint8),
+              ref8.to(torch.uint8), sao_p) + rec
     return fields, nxt
 
 
@@ -906,8 +1020,6 @@ def check_pgop_config(cfg: EncoderConfig) -> None:
     """Raise for every option the P-chunk path of this package does not
     implement (NotImplementedError naming its ROADMAP queue item)."""
     unported = [
-        (cfg.num_refs > 1 or cfg.tmvp, "multi-ref / TMVP", 12),
-        (cfg.sao, "SAO", 13),
         (cfg.ctu_size != 32, "CTU 16/64", 14),
         (cfg.dqp_enabled, "dQP / AQ / cuTree", 15),
         (cfg.rdoq or cfg.nr_inter or cfg.lowpass_dct,
@@ -937,9 +1049,11 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
 
     orig_y: (F, H, W) uint8 planes at the coded (8-aligned) size; ref:
     the post-filter recon of the preceding frame, a host ReconFrame or
-    a DeviceRef (used in place). weights: (F, 6) int32 weightp vectors.
-    The final reference (PgopPending.last_ref, a DeviceRef) can chain
-    the next submit at once."""
+    a DeviceRef (used in place), or the DeviceRef stack of the R =
+    cfg.num_refs most recent pictures (a single picture is broadcast to
+    the R slots: the duplicates are never selected). weights: (F, 6)
+    int32 weightp vectors. The final reference (PgopPending.last_ref,
+    the DeviceRef stack) can chain the next submit at once."""
     check_pgop_config(cfg)
     if qp_maps is not None:
         raise NotImplementedError(
@@ -972,6 +1086,13 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
             np.asarray(p)[:hh, :ww].astype(np.uint8))).to(dev)
             for p, hh, ww in ((ref.y, h, w), (ref.cb, h // 2, w // 2),
                               (ref.cr, h // 2, w // 2)))
+    nrefs = cfg.num_refs
+    if planes[0].dim() == 2:
+        # a single picture starts the R-slot stack
+        planes = tuple(p.expand(nrefs, *p.shape) for p in planes)
+    elif planes[0].shape[0] != nrefs:
+        raise ValueError(f"a stack of {planes[0].shape[0]} references, "
+                         f"num_refs {nrefs}")
     cur = (edge_pad(planes[0].to(torch.int32), hp, wp),
            edge_pad(planes[1].to(torch.int32), hp // 2, wp // 2),
            edge_pad(planes[2].to(torch.int32), hp // 2, wp // 2))
@@ -987,14 +1108,14 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
     outs = []
     for i in range(f):
         fields, cur = _pgop_frame(
-            *cur, oys[i], ocbs[i], ocrs[i], None if wv is None else wv[i],
+            cur, oys[i], ocbs[i], ocrs[i], None if wv is None else wv[i],
             qp=int(qp), qpc=int(qpc), bit_depth=cfg.bit_depth, real_h=h,
-            real_w=w, ctu=cfg.ctu_size, deblock=cfg.deblock,
+            real_w=w, ctu=cfg.ctu_size, deblock=cfg.deblock, sao=cfg.sao,
             sign_hiding=cfg.sign_hiding, me_range=int(me_range),
             intra_ii=cfg.intra_in_inter, psy_rd=float(cfg.psy_rd),
-            weight_denom=6, rqt=bool(cfg.rqt_inter))
+            weight_denom=6, rqt=bool(cfg.rqt_inter), nrefs=nrefs)
         outs.append(fields)
-    last_ref = DeviceRef(*(p[:hh, :ww].to(torch.uint8).contiguous()
+    last_ref = DeviceRef(*(p[..., :hh, :ww].to(torch.uint8).contiguous()
                            for p, hh, ww in ((cur[0], h, w),
                                              (cur[1], h // 2, w // 2),
                                              (cur[2], h // 2, w // 2))))
@@ -1004,24 +1125,28 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
 
 def collect_pgop_gpu(p: PgopPending):
     """Download one submitted chunk: per frame a FramePSyntax (host
-    arrays cropped to the coded size) and, when requested, a host
-    ReconFrame. Returns (syns, recons, last_ref)."""
+    arrays cropped to the coded size; ref8 None where every refIdx is
+    0; sao_params (p_y, p_cb, p_cr) with SAO on) and, when requested,
+    a host ReconFrame. Returns (syns, recons, last_ref)."""
     h, w = p.h, p.w
     n8y, n8x = h // 8, w // 8
     syns, recons = [], []
     for fields in p.outs:
-        (depth8, mv8, cf_y, cf_cb, cf_cr, intra8, imode8, tusplit8, ry, rcb,
-         rcr) = fields
+        (depth8, mv8, cf_y, cf_cb, cf_cr, intra8, imode8, tusplit8, ref8,
+         sao_p, ry, rcb, rcr) = fields
         small = [t[:n8y, :n8x].cpu().numpy()
-                 for t in (depth8, intra8, imode8, tusplit8)]
-        depth8_np, intra8_np, imode8_np, tus_np = small
+                 for t in (depth8, intra8, imode8, tusplit8, ref8)]
+        depth8_np, intra8_np, imode8_np, tus_np, ref8_np = small
         syn = FramePSyntax(
             depth8=np.ascontiguousarray(depth8_np),
             mv8=mv8[:n8y, :n8x].cpu().numpy().astype(np.int32),
             coeff_y=cf_y[:h, :w].to(torch.int16).cpu().numpy(),
             coeff_cb=cf_cb[:h // 2, :w // 2].to(torch.int16).cpu().numpy(),
             coeff_cr=cf_cr[:h // 2, :w // 2].to(torch.int16).cpu().numpy(),
-            tusplit8=np.ascontiguousarray(tus_np) if tus_np.any() else None)
+            tusplit8=np.ascontiguousarray(tus_np) if tus_np.any() else None,
+            ref8=np.ascontiguousarray(ref8_np) if ref8_np.any() else None)
+        if sao_p is not None:
+            syn.sao_params = tuple(sao_p.cpu().numpy())
         if intra8_np.any():
             syn.intra8 = intra8_np != 0
             syn.mode8 = imode8_np

@@ -105,6 +105,55 @@ def get_lib() -> ctypes.CDLL:
     return _lib
 
 
+class _PExtC(ctypes.Structure):
+    """Mirrors struct PExtC in entropy.cpp field for field (the
+    multi-reference + TMVP block): a wrong order is not refused by the
+    call, it silently corrupts the stream."""
+    _fields_ = [
+        ("ref8", ctypes.c_void_p), ("num_ref", ctypes.c_int32),
+        ("tmvp", ctypes.c_int32), ("ref_pocs", ctypes.c_void_p),
+        ("col_mv", ctypes.c_void_p), ("col_ref8", ctypes.c_void_p),
+        ("col_inter8", ctypes.c_void_p), ("col_poc", ctypes.c_int32),
+        ("col_ref_pocs", ctypes.c_void_p),
+        ("n_col_refs", ctypes.c_int32),
+        ("cu_bits_out", ctypes.c_void_p)]
+
+
+def _make_pext(ref8, num_ref, tmvp, ref_pocs, col):
+    """(pointer to a PExtC, keepalive list), or (None, []) when the
+    slice uses one reference and no TMVP. col = (col_mv, col_ref8,
+    col_inter8, col_poc, col_ref_pocs) of the collocated picture."""
+    if ref8 is None and num_ref <= 1 and not tmvp:
+        return None, []
+    keep = []
+
+    def arr(a, dt):
+        if a is None:
+            return None
+        c = np.ascontiguousarray(a, dtype=dt)
+        keep.append(c)
+        return c.ctypes.data
+
+    px = _PExtC()
+    px.ref8 = arr(ref8, np.uint8)
+    px.num_ref = int(num_ref)
+    px.tmvp = 1 if tmvp else 0
+    px.ref_pocs = arr(None if ref_pocs is None
+                      else np.asarray(ref_pocs, np.int32), np.int32)
+    if col is not None and col[2] is not None:
+        col_mv, col_ref8, col_inter8, col_poc, col_ref_pocs = col
+        px.col_mv = arr(col_mv, np.int32)
+        px.col_ref8 = arr(col_ref8, np.uint8)
+        px.col_inter8 = arr(col_inter8, np.uint8)
+        px.col_poc = int(col_poc)
+        px.col_ref_pocs = arr(np.asarray(col_ref_pocs, np.int32), np.int32)
+        px.n_col_refs = len(col_ref_pocs)
+    else:
+        px.tmvp = 0
+    keep.append(px)
+    return ctypes.byref(px), keep
+
+
 def encode_slice_native(slice_type: int, depth8: np.ndarray,
                         coeff_y: np.ndarray, coeff_cb: np.ndarray,
                         coeff_cr: np.ndarray, w: int, h: int,
@@ -114,16 +163,26 @@ def encode_slice_native(slice_type: int, depth8: np.ndarray,
                         mv8: np.ndarray | None = None, max_merge: int = 2,
                         sign_hiding: bool = False,
                         cmode8: np.ndarray | None = None,
+                        sao_params=None,
                         nxn8: np.ndarray | None = None,
                         mode4: np.ndarray | None = None,
                         slice_qp: int = 26,
                         intra8: np.ndarray | None = None,
+                        poc: int = 0,
                         tusplit8: np.ndarray | None = None,
-                        rqt_inter: bool = False
+                        rqt_inter: bool = False,
+                        ref8: np.ndarray | None = None,
+                        num_ref: int = 1,
+                        ref_pocs_l0=None,
+                        tmvp: bool = False,
+                        col=None
                         ) -> tuple[bytes, int, int]:
-    """Native slice encoder for I (mode8, NxN via nxn8/mode4) and
-    single-reference P (mv8, intra8, tusplit8) slices without SAO or
-    dQP. Returns (payload_bytes, tail_value, tail_nbits)."""
+    """Native slice encoder for I (mode8, NxN via nxn8/mode4) and P
+    (mv8, intra8, tusplit8) slices without dQP. SAO: sao_params =
+    (p_y, p_cb, p_cr) per-CTU parameters. Multi-reference P: ref8,
+    num_ref, ref_pocs_l0; TMVP: tmvp and col = (col_mv, col_ref8,
+    col_inter8, col_poc, col_ref_pocs). Returns (payload_bytes,
+    tail_value, tail_nbits)."""
     lib = get_lib()
 
     def arr(a, dt):
@@ -144,18 +203,22 @@ def encode_slice_native(slice_type: int, depth8: np.ndarray,
     m4 = arr(mode4, np.uint8)
     i8 = arr(intra8, np.uint8)
     ts8 = arr(tusplit8, np.uint8)
+    saos = [None] * 3 if sao_params is None else \
+        [arr(p, np.int32) for p in sao_params]
     cap = w * h * 4 + 4096
     out = np.empty(cap, dtype=np.uint8)
     tail_val = ctypes.c_uint32(0)
     tail_bits = ctypes.c_int(0)
+    pext, _keep = _make_pext(ref8, num_ref, tmvp and slice_type == 1,
+                             ref_pocs_l0, col)
     n = lib.encode_slice(
         slice_type, ptr(d8), ptr(m8), ptr(mv), None, None,
-        0, 0, 0, max_merge,
+        poc, 0, 0, max_merge,
         1 if sign_hiding else 0, 0, ptr(cm8),
-        ptr(cy), ptr(cb), ptr(cr), None, None, None,
+        ptr(cy), ptr(cb), ptr(cr), *(ptr(p) for p in saos),
         ptr(nx8), ptr(m4), ptr(i8), ptr(ts8),
         1 if rqt_inter else 0, None, slice_qp,
-        w, h, log2_ctu, log2_min_cu, ptr(st), len(st), None,
+        w, h, log2_ctu, log2_min_cu, ptr(st), len(st), pext,
         ptr(out), cap, ctypes.byref(tail_val), ctypes.byref(tail_bits))
     if n < 0:
         raise RuntimeError("native slice encoder overflowed output buffer")

@@ -514,6 +514,21 @@ def _take_k(a: torch.Tensor, mi: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, 0, idx)[0]
 
 
+def search_plane(cur: torch.Tensor, cur_search: torch.Tensor, wm, k: int):
+    """The current plane the integer search compares: cur_search (the
+    weight-compensated current) inside the k x k blocks where wm (one
+    bool per block, raster order) is set, the true current elsewhere.
+    It gives the search kernels, which take one plane, the per-block
+    current lanes the reference composes (jnp.where(wm, cur_s, cur)).
+    wm None: cur_search everywhere."""
+    if wm is None:
+        return cur_search
+    h, w = cur.shape
+    m = wm.reshape(h // k, w // k).repeat_interleave(k, 0) \
+        .repeat_interleave(k, 1)
+    return torch.where(m, cur_search, cur).contiguous()
+
+
 # =============================================================================
 # whole-frame ME with SHARED per-16-region windows
 # =============================================================================
@@ -523,15 +538,31 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
                  pad: int, bit_depth: int = 8,
                  cur_search: torch.Tensor | None = None,
                  wvec: torch.Tensor | None = None,
-                 weight_denom: int = 6):
-    """Dense single-reference ME for every block of every size with two
-    plane gathers per frame: one window per 16x16 region at its coarse
-    seed (shared by the n=16 search and the four n=8 searches inside
-    it) and one window per 32x32 block.
+                 weight_denom: int = 6, ref_stride: int = 0,
+                 ref16: torch.Tensor | None = None,
+                 ref32: torch.Tensor | None = None,
+                 cmv32: torch.Tensor | None = None,
+                 zero_planes: dict | None = None):
+    """Dense ME for every block of every size with two plane gathers per
+    frame: one window per 16x16 region at its coarse seed (shared by the
+    n=16 search and the four n=8 searches inside it) and one window per
+    32x32 block.
 
     cur: (H, W) int32 (multiples of 32); ref_pad: uint8 reference
     edge-padded by `pad` >= 2*radius + 8; cmv16: (H//16, W//16, 2)
     full-pel coarse seeds; wvec: (6,) int32 explicit weights (weightp).
+
+    Multi-reference: ref_pad stacks the R padded references vertically,
+    ref_stride = H + 2*pad rows apart; ref16/ref32 select each
+    16-region's / 32-block's reference, cmv32 gives the 32-block seeds
+    from that reference's coarse pass, and zero_planes[{16, 32}] the
+    planes composed of the selected references for the zero-MV
+    candidates. Weights apply to reference 0 only: elsewhere the
+    predictions round as unweighted ones, and the search compares the
+    true current instead of the weight-compensated one. The integer
+    search takes one current plane, so that plane is composed per
+    region: compensated where the region's reference is 0.
+
     Returns ({n: (mv_qpel (B,2), cost (B,), pred (B,n,n))},
     {16: (sx, sy), 32: (sx, sy)} clamped per-region seeds)."""
     h, w = cur.shape
@@ -544,6 +575,7 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
                                           wvec[1], weight_denom, bit_depth)
     if cur_search is None:
         cur_search = cur
+    zp = zero_planes or {}
 
     def grid(n):
         by, bx = h // n, w // n
@@ -551,9 +583,12 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
         xs = torch.arange(bx, dtype=torch.int32, device=dev) * n
         return ys.repeat_interleave(bx), xs.repeat(by)
 
-    def up2(a, by, bx):
-        return a.reshape(by, bx).repeat_interleave(2, 0) \
-            .repeat_interleave(2, 1).reshape(-1)
+    def up(a, by, bx, k):
+        return a.reshape(by, bx).repeat_interleave(k, 0) \
+            .repeat_interleave(k, 1)
+
+    def row_off(sel):
+        return 0 if sel is None else sel * ref_stride
 
     by16, bx16 = h // 16, w // 16
     y16, x16 = grid(16)
@@ -563,7 +598,8 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
     sy16 = _clip(cmv16[..., 1].reshape(-1), -(y16 + r + 4),
                  (h - 16) - y16 + r + 4)
     wlen16 = 16 + 2 * r + 8
-    w16 = gather_windows_ds(ref_pad, pad, y16 + sy16 - (r + 4),
+    w16 = gather_windows_ds(ref_pad, pad,
+                            y16 + sy16 - (r + 4) + row_off(ref16),
                             x16 + sx16 - (r + 4), wlen16)
 
     offs = torch.arange(side, dtype=torch.int32, device=dev) - r
@@ -574,22 +610,17 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
         return (lam * comp_bits((seedx[None, :] + offs[:, None]) * 4),
                 lam * comp_bits((seedy[None, :] + offs[:, None]) * 4))
 
-    if weighted:
-        def wround(acc):
-            return apply_weight_acc(acc, wvec[0], wvec[1], weight_denom,
-                                    bit_depth)
-    else:
-        def wround(acc):
-            return _round_clip(acc, bit_depth)
-
     noff = torch.tensor([(1, 0), (-1, 0), (0, 1), (0, -1),
                          (1, 1), (1, -1), (-1, 1), (-1, -1)],
                         dtype=torch.int32, device=dev)
 
-    def run_size(win_t, cur_t, seedx, seedy, n, int_best):
+    def run_size(win_t, cur_t, seedx, seedy, n, int_best, zero_plane=None,
+                 wmask=None):
         """win_t: (n+2r+8, n+2r+8, B) windows at seed-(r+4); cur_t the
         true current; int_best the integer search's (cost, index) over
-        the (possibly weight-compensated) search current. Returns
+        the search current; zero_plane the plane of the zero-MV
+        candidates (None: the unpadded ref_pad); wmask (B,) bool, the
+        weighted blocks when weights reach reference 0 only. Returns
         (mv_qpel, cost, pred (n, n, B))."""
         b = cur_t.shape[-1]
         _, best_i = int_best
@@ -597,6 +628,14 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
         ox_i = best_i - oy_i * side
         mvx_i = seedx + ox_i - r
         mvy_i = seedy + oy_i - r
+
+        def wround(acc):
+            if not weighted:
+                return _round_clip(acc, bit_depth)
+            wv = apply_weight_acc(acc, wvec[0], wvec[1], weight_denom,
+                                  bit_depth)
+            return wv if wmask is None else torch.where(
+                wmask[None, None, :], wv, _round_clip(acc, bit_depth))
 
         # sub-pel window at the best integer position
         swin_t = select_window_lanes(win_t, oy_i, ox_i, n + 8, side)
@@ -659,10 +698,14 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
             best_pred = torch.where(better[None, None, :], p, best_pred)
 
         # dense zero-MV candidate (SATD level, no gather)
-        zero_t = lanes_of(ref_pad[pad:pad + h, pad:pad + w], n)
+        if zero_plane is None:
+            zero_plane = ref_pad[pad:pad + h, pad:pad + w]
+        zero_t = lanes_of(zero_plane, n)
         if weighted:
-            zero_t = apply_weight_fullpel(zero_t, wvec[0], wvec[1],
-                                          weight_denom, bit_depth)
+            zw = apply_weight_fullpel(zero_t, wvec[0], wvec[1],
+                                      weight_denom, bit_depth)
+            zero_t = zw if wmask is None else \
+                torch.where(wmask[None, None, :], zw, zero_t)
         zcost = sa8d_nxn_lanes(cur_t - zero_t, n) + lam * 2
         zwin = zcost < scost
         scost = torch.where(zwin, zcost, scost)
@@ -672,34 +715,44 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
         return (torch.stack([mvqx, mvqy], dim=1), scost,
                 best_pred.permute(2, 0, 1))
 
+    # weights reach reference 0 only (multi-reference)
+    wm16 = (ref16 == 0) if weighted and ref16 is not None else None
+    wm32 = (ref32 == 0) if weighted and ref32 is not None else None
+    wm8 = None if wm16 is None else up(wm16, by16, bx16, 2).reshape(-1)
+
     # the four 8-blocks' (8+2r+8)^2 windows are static slices of the
     # parent 16-region window (same seed), assembled in raster order
     w8 = sub8_windows(w16, by16, bx16)
-    sx8 = up2(sx16, by16, bx16)
-    sy8 = up2(sy16, by16, bx16)
+    sx8 = up(sx16, by16, bx16, 2).reshape(-1)
+    sy8 = up(sy16, by16, bx16, 2).reshape(-1)
     penx8, peny8 = pens_of(sx8, sy8)
     penx16, peny16 = pens_of(sx16, sy16)
     # one pass over pixels serves both grids
     int8_best, int16_best = int_search_pair_windows(
-        w16, cur_search, penx8, peny8, penx16, peny16, by16, bx16, side,
-        lead=4)
+        w16, search_plane(cur, cur_search, wm16, 16), penx8, peny8, penx16,
+        peny16, by16, bx16, side, lead=4)
     out = {8: run_size(w8.permute(1, 2, 0), lanes_of(cur, 8), sx8, sy8, 8,
-                       int8_best),
+                       int8_best, zp.get(16), wm8),
            16: run_size(w16.permute(1, 2, 0), lanes_of(cur, 16), sx16, sy16,
-                        16, int16_best)}
+                        16, int16_best, zp.get(16), wm16)}
 
     y32, x32 = grid(32)
-    # seed: the coarse MV at the 32-block centre
-    s32 = cmv16.reshape(by16, bx16, 2)[1::2, 1::2].reshape(-1, 2)
+    # seed: the selected reference's coarse MV (multi-reference) or the
+    # coarse MV at the 32-block centre
+    s32 = cmv32.reshape(-1, 2) if cmv32 is not None else \
+        cmv16.reshape(by16, bx16, 2)[1::2, 1::2].reshape(-1, 2)
     sx32 = _clip(s32[:, 0], -(x32 + r + 4), (w - 32) - x32 + r + 4)
     sy32 = _clip(s32[:, 1], -(y32 + r + 4), (h - 32) - y32 + r + 4)
     wlen32 = 32 + 2 * r + 8
-    w32 = gather_windows_ds(ref_pad, pad, y32 + sy32 - (r + 4),
+    w32 = gather_windows_ds(ref_pad, pad,
+                            y32 + sy32 - (r + 4) + row_off(ref32),
                             x32 + sx32 - (r + 4), wlen32)
     penx32, peny32 = pens_of(sx32, sy32)
+    int32_best = int_search_windows(w32, search_plane(cur, cur_search, wm32,
+                                                      32),
+                                    penx32, peny32, 32, side, lead=4)
     out[32] = run_size(w32.permute(1, 2, 0), lanes_of(cur, 32), sx32, sy32,
-                       32, int_search_windows(w32, cur_search, penx32,
-                                              peny32, 32, side, lead=4))
+                       32, int32_best, zp.get(32), wm32)
     return out, {16: (sx16, sy16), 32: (sx32, sy32)}
 
 
@@ -739,15 +792,17 @@ def seed_floor_off(seed: torch.Tensor, radius: int) -> torch.Tensor:
 def gather_chroma_windows(cpad2: torch.Tensor, pc: int,
                           reg_cy: torch.Tensor, reg_cx: torch.Tensor,
                           s0y: torch.Tensor, s0x: torch.Tensor,
-                          wc: int) -> torch.Tensor:
+                          wc: int, row_off=0) -> torch.Tensor:
     """(Breg, 2, wc, wc) stacked cb/cr windows with origin (reg + s0)
     in unpadded chroma coordinates. cpad2 (2, Hc', Wc') is viewed as
     one (2*Hc', Wc') plane of rows; the second half of the batch reads
-    the cr rows. Rows are clamped per component first, as the
-    reference's per-plane dynamic_slice does."""
+    the cr rows. row_off: per-region extra rows inside each component
+    (multi-reference: ref * segment rows, when Hc' stacks R padded
+    references). Rows are clamped over the whole component first, as
+    the reference's per-plane dynamic_slice does."""
     b = reg_cy.shape[0]
     hc = cpad2.shape[1]
-    ys = _start(reg_cy + s0y + pc, hc, wc)
+    ys = _start(reg_cy + s0y + pc + row_off, hc, wc)
     xs = reg_cx + s0x + pc
     flat = cpad2.reshape(2 * hc, cpad2.shape[2])
     win = gather_windows(flat, torch.cat([ys, ys + hc]).to(torch.int32),
