@@ -13,10 +13,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
   2. kernel vs plain: the window-gather kernel against its plain PyTorch
      version at the four bench-path window shapes, uint8 and uint16, and
      at the four fast/zerolatency-path shapes (three references stacked
-     in one plane; uint8), exact equality, timed beside a one-call
-     PyTorch indexing yardstick and its memory bound; the integer-search
+     in one plane; uint8) and the four medium/zerolatency-path shapes
+     (three references stacked, me_range 10), exact equality, timed
+     beside a one-call PyTorch indexing yardstick and its memory bound;
+     the integer-search
      kernel against its plain version at the two bench-path shapes
-     (8160 16-regions with their 8-blocks, 2040 32-blocks; side 21) on
+     (8160 16-regions with their 8-blocks, 2040 32-blocks; side 21, the
+     medium/zerolatency path's too: its stacked references change the
+     windows' source, not the search's inputs) on
      random, near-flat (ties at many indices) and flat windows (every
      candidate ties, index 0 wins), timed at side 21 and at the
      fast/zerolatency path's side 11 (me_range 5, windows 34 and 50),
@@ -29,7 +33,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      me_range 10 and at me_range 7, then I + 1 P at the size in
      CARD_CPU_SIZE; fast/zerolatency: a 64x96 strobe clip, 1 I + 6 P in
      chunks of 2, where some blocks must predict from reference 1 or
-     later and some CTU must have SAO on, then 1080p I + 2 P);
+     later and some CTU must have SAO on, then 1080p I + 2 P;
+     medium/zerolatency: a 72x128 clip, 1 I + 6 P in chunks of 2, where
+     some CU must be a depth-0 64x64 CU and some block must predict
+     from reference 1 or later, then 1080p I + 1 P);
   4. the bench path at full size: 1080p, 1 I (QP 29) + 24 P (CQP 32),
      pipelined chunks of 8, one warm-up pass, one timed pass; in the
      timed pass the gather must have launched 4 times per P frame and
@@ -42,10 +49,15 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      passes and launch checks as phase 4, with the share of 8x8 cells
      predicted from reference 1 or later and of CTUs with SAO on, then
      one profile of its P chunk as in phase 5;
-  7. the kernels line (one JSON object; launches summed over the timed
-     passes of both paths, and per path; times and bounds per P frame
-     at the bench path's shapes, as its ms_of says), the card line, and
-     the last line
+  7. the medium/zerolatency path at full size (--preset medium --tune
+     zerolatency, x265's default preset for live encoding: CTU 64, 3
+     references, me_range 10, TMVP, merge 3, SAO): the same clip,
+     passes, launch checks and shares as phase 6, with the share of
+     P-frame area coded as 64x64 CUs, then one profile of its P chunk;
+  8. the kernels line (one JSON object; launches summed over the timed
+     passes of the three paths, and per path; times and bounds per P
+     frame at the bench path's shapes, as its ms_of says), the card
+     line, and the last line
      {"ok": true, "device": {...}}.
 Imports neither JAX nor the x265_tpu reference package.
 """
@@ -99,6 +111,17 @@ FAST_SHAPES = (
     ("chroma_32block_25_3refs", 2 * 3 * (544 + 26), 960 + 26, 25,
      2 * 2040),
 )
+# the medium/zerolatency path at 1080p: me_range 10 (side 21, the bench
+# search shapes) and three references stacked: luma rows 3 x (1088 + 56),
+# cb/cr rows 2 x 3 x (544 + 36), windows 44/60 and 22/30
+MEDIUM_SHAPES = (
+    ("luma_16region_44_3refs", 3 * (1088 + 56), 1920 + 56, 44, 8160),
+    ("luma_32block_60_3refs", 3 * (1088 + 56), 1920 + 56, 60, 2040),
+    ("chroma_16region_22_3refs", 2 * 3 * (544 + 36), 960 + 36, 22,
+     2 * 8160),
+    ("chroma_32block_30_3refs", 2 * 3 * (544 + 36), 960 + 36, 30,
+     2 * 2040),
+)
 # untimed exactness rows at other me_ranges: (case, side)
 OTHER_SIDES = (("random_me_range_7", 15),    # windows 38/54, odd rows
                ("random_me_range_2", 5),     # windows 28/44
@@ -145,6 +168,44 @@ def strobe_clip(n, h=64, w=96, seed=0):
     return [(tex[k % 2], ch[k % 2], ch[k % 2]) for k in range(n)]
 
 
+def _blur(a, k):
+    """A (2k)-wide box blur along both axes, edges replicated."""
+    for ax in (0, 1):
+        pad = [(k, k) if i == ax else (0, 0) for i in range(2)]
+        c = np.cumsum(np.pad(a, pad, mode="edge"), axis=ax)
+        n = c.shape[ax]
+        a = (np.take(c, range(2 * k, n), axis=ax) -
+             np.take(c, range(0, n - 2 * k), axis=ax)) / (2 * k)
+    return a
+
+
+def medium_clip(n, h=72, w=128, pan=2, seed=7, split=96):
+    """The CTU-64 test clip (tests/test_torch_ctu64.py and
+    tests/test_torch_gpu.py encode it too): left of column `split`
+    blurred noise panning 2 pixels a frame (smooth, and unique under
+    shifts, so one MV fits a whole 64x64 CU); right of it two random
+    textures that alternate, so frame k matches frame k - 2. Chroma
+    likewise."""
+    rng = np.random.default_rng(seed)
+    wide = w + pan * n
+    sm = _blur(rng.integers(0, 256, (h, wide)).astype(np.float64), 3)
+    y_s = 128 + (sm - sm.mean()) * 3.0
+    c_s = [_blur(rng.integers(0, 256, (h // 2, wide // 2))
+                 .astype(np.float64), 3) for _ in range(2)]
+    c_s = [128 + (c - c.mean()) * 1.5 for c in c_s]
+    tex = [rng.integers(0, 255, (h, w)) for _ in range(2)]
+    ctex = [rng.integers(100, 160, (h // 2, w // 2)) for _ in range(2)]
+    left = np.arange(w)[None, :] < split
+    out = []
+    for k in range(n):
+        y = np.where(left, y_s[:, pan * k:pan * k + w], tex[k % 2])
+        c = [np.where(left[:, ::2], cs[:, pan * k // 2:pan * k // 2 + w // 2],
+                      ctex[k % 2]) for cs in c_s]
+        out.append(tuple(np.clip(p, 0, 255).astype(np.uint8)
+                         for p in (y, *c)))
+    return out
+
+
 def bench_config(h, w, me_range=10):
     """The bench path's configuration: CQP 32, deblock, no SAO, one
     reference."""
@@ -159,6 +220,16 @@ def fast_config(h, w):
     from x265_tpu_torch.common.params import EncoderConfig
     cfg = EncoderConfig(width=w, height=h, qp=QP)
     cfg.apply_preset("fast")
+    cfg.apply_tune("zerolatency")
+    return cfg
+
+
+def medium_config(h, w):
+    """--preset medium --tune zerolatency at CQP 32: CTU 64, 3
+    references, me_range 10, TMVP, merge 3, SAO, no B frames."""
+    from x265_tpu_torch.common.params import EncoderConfig
+    cfg = EncoderConfig(width=w, height=h, qp=QP)
+    cfg.apply_preset("medium")
     cfg.apply_tune("zerolatency")
     return cfg
 
@@ -339,8 +410,9 @@ def _search_case(rng, case, n, nb, side):
 
 def phase_search():
     """Search kernel vs plain at the main-path shapes; returns per path
-    ("bench": side 21, "fast": side 11) the per-frame aggregate numbers
-    for the kernels line."""
+    ("bench" and "medium": side 21, "fast": side 11) the per-frame
+    aggregate numbers for the kernels line. The medium path's rows are
+    the bench path's random case again, timed in its own turn."""
     from x265_tpu_torch.ops.me_win import int_search_pair_windows, \
         int_search_pair_windows_plain, int_search_windows, \
         int_search_windows_plain
@@ -350,15 +422,18 @@ def phase_search():
     lane_ops_per_s = sms * INT32_LANES_PER_SM * clock_hz
     aggs = {path: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                    "ops_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0}
-            for path in ("bench", "fast")}
-    # (case, side, the path whose time it is, or None: untimed)
-    rows = (("random", SIDE, "bench"), ("near_flat", SIDE, None),
-            ("flat", SIDE, None), ("random_me_range_5", FAST_SIDE, "fast"),
-            *((case, side, None) for case, side in OTHER_SIDES))
+            for path in ("bench", "fast", "medium")}
+    # (row, case, side, the path whose time it is, or None: untimed)
+    rows = (("random", "random", SIDE, "bench"),
+            ("near_flat", "near_flat", SIDE, None),
+            ("flat", "flat", SIDE, None),
+            ("random_me_range_5", "random", FAST_SIDE, "fast"),
+            ("random_medium", "random", SIDE, "medium"),
+            *((row, "random", side, None) for row, side in OTHER_SIDES))
     for name, n, nb in SEARCH_SHAPES:
         by, bx = SCAN[0] // n, SCAN[1] // n
-        for case, side, path in rows:
-            args = _search_case(rng, case.split("_me")[0], n, nb, side)
+        for row, case, side, path in rows:
+            args = _search_case(rng, case, n, nb, side)
             if n == 16:
                 def kern(a=args, sd=side):
                     return int_search_pair_windows(*a, by, bx, sd, LEAD)
@@ -380,14 +455,14 @@ def phase_search():
                       for g, w in zip(got, want))
             if err != 0:
                 raise AssertionError(f"search kernel != plain at {name} "
-                                     f"{case}: max abs err {err}")
+                                     f"{row}: max abs err {err}")
             if case == "flat" and any(int(i.abs().max()) != 0
                                       for i in got[1::2]):
                 raise AssertionError(f"flat {name}: a tie did not pick "
                                      f"index 0")
             for agg in aggs.values():
                 agg["max_abs_err"] = max(agg["max_abs_err"], err)
-            rec = {"search": name, "case": case, "units": nb, "n": n,
+            rec = {"search": name, "case": row, "units": nb, "n": n,
                    "side": side, "max_abs_err": err}
             if path is not None:
                 agg = aggs[path]
@@ -521,20 +596,24 @@ def full_size_clip(n, size=(1080, 1920)):
             for i in range(n)]
 
 
-def path_stats(res) -> dict:
+def path_stats(res, ctu=32) -> dict:
     """Over the P frames of one encode: the share of 8x8 cells that
-    predict from reference 1 or later, and per component the share of
-    CTUs whose SAO is on (None without SAO)."""
+    predict from reference 1 or later, per component the share of CTUs
+    whose SAO is on (None without SAO) and, at CTU 64, the share of the
+    area coded as 64x64 CUs."""
     ps = [r.syntax for r in res[1:]]
     cells = sum(s.depth8.size for s in ps)
     older = sum(int((s.ref8 > 0).sum()) for s in ps if s.ref8 is not None)
+    cu64 = sum(int((s.depth8 == 0).sum()) for s in ps) / cells \
+        if ctu == 64 else None
     sao = None
     if ps[0].sao_params is not None:
         ctus = sum(s.sao_params[0][..., 0].size for s in ps)
         sao = {c: sum(int((s.sao_params[k][..., 0] != 0).sum())
                       for s in ps) / ctus
                for k, c in enumerate(("y", "cb", "cr"))}
-    return {"ref8_gt0_share": older / cells, "sao_on_share": sao}
+    return {"ref8_gt0_share": older / cells, "sao_on_share": sao,
+            "cu64_share": cu64}
 
 
 def phase_card_equals_cpu():
@@ -549,7 +628,11 @@ def phase_card_equals_cpu():
         ("fast/zerolatency 64x96 strobe 1I+6P chunk 2", strobe_clip(7),
          fast_config, 2),
         ("fast/zerolatency 1080x1920 1I+2P", full_size_clip(3),
-         fast_config, CHUNK))
+         fast_config, CHUNK),
+        ("medium/zerolatency 72x128 1I+6P chunk 2", medium_clip(7),
+         medium_config, 2),
+        ("medium/zerolatency 1080x1920 1I+1P", full_size_clip(2),
+         medium_config, CHUNK))
     out = {}
     for tag, frames, make_cfg, chunk in legs:
         h, w = frames[0][0].shape
@@ -564,13 +647,15 @@ def phase_card_equals_cpu():
         rec = {"card_equals_cpu": tag, "frames": len(gpu),
                "bytes": sum(len(r.bitstream) for r in gpu),
                "card_s": t1 - t0, "cpu_s": t2 - t1}
-        if "strobe" in tag:
-            rec.update(path_stats(gpu))
+        if "strobe" in tag or "72x128" in tag:
+            rec.update(path_stats(gpu, make_cfg(h, w).ctu_size))
             if rec["ref8_gt0_share"] == 0:
                 raise AssertionError(f"{tag}: no block predicted from "
                                      f"reference 1 or later")
             if not any(rec["sao_on_share"].values()):
                 raise AssertionError(f"{tag}: no CTU with SAO on")
+            if rec["cu64_share"] == 0:
+                raise AssertionError(f"{tag}: no 64x64 CU")
         print(json.dumps(rec), flush=True)
         out[tag] = gpu
     return out
@@ -625,7 +710,8 @@ def phase_path(path: str, make_cfg, first_frames):
                       "warmup_s": warm_s, "wall_s": wall,
                       "fps": GOP / wall, **split,
                       "p_frame_s": split["p_frames_s"] / (GOP - 1),
-                      "launches": launches, **path_stats(res)}),
+                      "launches": launches,
+                      **path_stats(res, make_cfg(1080, 1920).ctu_size)}),
           flush=True)
     return launches, frames
 
@@ -698,7 +784,8 @@ def main() -> int:
 
     phase_int_rates()
     gather = {"bench": phase_gather(SHAPES),
-              "fast": phase_gather(FAST_SHAPES, (torch.uint8,))}
+              "fast": phase_gather(FAST_SHAPES, (torch.uint8,)),
+              "medium": phase_gather(MEDIUM_SHAPES, (torch.uint8,))}
     search = phase_search()
     log("kernel == plain at every main-path shape")
     legs = phase_card_equals_cpu()
@@ -708,7 +795,9 @@ def main() -> int:
             ("bench", bench_config,
              legs[f"{CARD_CPU_SIZE[0]}x{CARD_CPU_SIZE[1]} 1I+1P"]
              if CARD_CPU_SIZE == (1080, 1920) else []),
-            ("fast", fast_config, legs["fast/zerolatency 1080x1920 1I+2P"])):
+            ("fast", fast_config, legs["fast/zerolatency 1080x1920 1I+2P"]),
+            ("medium", medium_config,
+             legs["medium/zerolatency 1080x1920 1I+1P"])):
         launches[path], frames = phase_path(path, make_cfg, first)
         log(f"{path} path ran, launches {launches[path]}")
         phase_profile(frames, make_cfg(1080, 1920), path)
@@ -723,10 +812,10 @@ def main() -> int:
                "int_search": {**{k: search[path][k] for k in
                                  ("ms", "plain_ms", "bound_ms", "bound_by")},
                               "launches": launches[path]["int_search"]}}
-        for path in ("bench", "fast")}}), flush=True)
-    # launches: summed over both paths' timed passes; the times and the
+        for path in launches}}), flush=True)
+    # launches: summed over the paths' timed passes; the times and the
     # bound: per P frame at the bench path's shapes (ms_of)
-    total = {k: launches["bench"][k] + launches["fast"][k]
+    total = {k: sum(n[k] for n in launches.values())
              for k in ("gather_windows", "int_search")}
     by_path = {k: {path: launches[path][k] for path in launches}
                for k in total}

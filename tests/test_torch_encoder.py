@@ -111,10 +111,10 @@ def test_entry_points_want_a_gpu():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("num_refs", 2), ("tmvp", True), ("sao", True)])
+    ("num_refs", 2), ("tmvp", True), ("sao", True), ("ctu_size", 64)])
 def test_ported_options_construct(field, value):
-    """Multi-reference prediction, TMVP and SAO are ported: the encoder
-    and the P-chunk path take them."""
+    """Multi-reference prediction, TMVP, SAO and CTU 64 are ported: the
+    encoder and the P-chunk path take them."""
     from x265_tpu_torch.enc.pgop_gpu import check_pgop_config
     cfg = EncoderConfig(width=64, height=64, qp=32)
     setattr(cfg, field, value)
@@ -123,7 +123,7 @@ def test_ported_options_construct(field, value):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("ctu_size", 64, 14), ("aq_mode", 2, 15), ("rdoq", True, 16),
+    ("aq_mode", 2, 15), ("rdoq", True, 16),
     ("nr_inter", 100, 16), ("lowpass_dct", True, 16), ("wpp", True, 17),
     ("lossless", True, 18), ("bit_depth", 10, 19), ("bframes", 3, 21),
     ("hash_sei", 1, 24)])
@@ -133,6 +133,20 @@ def test_unported_options_raise(field, value, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue 1 item {item}"):
         IntraEncoder(cfg, device="cpu")
+
+
+def test_ctu16_raises_naming_the_host_recon_i_path():
+    """CTU 16 is all-intra only (keyint 1; with another keyint the
+    config's validate refuses it first, as the reference's does), and
+    the reference runs it through the host-recon I path alone."""
+    cfg = EncoderConfig(width=64, height=64, qp=32, ctu_size=16, keyint=1,
+                        bframes=0)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item 18"):
+        IntraEncoder(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="all-intra only"):
+        IntraEncoder(EncoderConfig(width=64, height=64, qp=32, ctu_size=16),
+                     device="cpu")
 
 
 def test_host_recon_i_path_raises():

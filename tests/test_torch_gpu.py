@@ -1,10 +1,11 @@
 """The port's hand-written kernels (the window gather and the integer
 search) against their plain PyTorch versions on a CUDA card, at the
-bench path's shapes and at the fast/zerolatency path's (stacked
-references, side 11, a composed search current), and the card's stream
-against the CPU's at an odd me_range and in the fast/zerolatency
-configuration. This file imports neither JAX nor the reference package,
-so it runs on a machine with a GPU and no JAX:
+bench path's shapes and at the fast/zerolatency and medium/zerolatency
+paths' (stacked references, sides 11 and 21, a composed search
+current), and the card's stream against the CPU's at an odd me_range
+and in the fast/zerolatency and medium/zerolatency configurations.
+This file imports neither JAX nor the reference package, so it runs on
+a machine with a GPU and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import medium_clip
 from x265_tpu_torch.ops import me_win as port
 
 # the main path's four window sizes at me_range 10: luma 16-region and
@@ -222,30 +224,22 @@ def test_int_search_unaligned_windows_on_gpu():
             assert torch.equal(got[1], want[1]), (shift, odd)
 
 
-# the fast/zerolatency path at 1080p (me_range 5, 3 references): the
-# luma references stacked as (3 x (1088 + 36), 1920 + 36), the chroma
-# cb/cr rows as 2 x 3 x (544 + 26) rows of 960 + 26; windows 34 and 50
-# (luma), 17 and 25 (chroma)
-MULTIREF_LUMA = (3, 1088, 1920, 18)
-MULTIREF_CHROMA = (3, 544, 960, 13)
-
-
-@pytest.mark.gpu
-def test_gather_kernel_on_stacked_references_on_gpu():
-    """The gather on a 3-reference stacked uint8 plane at the
-    fast/zerolatency path's shapes: luma windows 34 and 50 starting in
-    every reference's segment, and the chroma windows 17 and 25 through
-    gather_chroma_windows with per-region reference rows (its starts
-    clamp over the whole stacked component), against the plain
-    version (the same call on CPU tensors)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
-    rng = np.random.default_rng(4)
-    nr, h, w, pad = MULTIREF_LUMA
+def _check_stacked_gather(me_range, seed):
+    """The gather on a 3-reference stacked uint8 plane at a path's 1080p
+    shapes at me_range r (luma references (3 x (1088 + 2r + 8), 1920 +
+    2r + 8), windows 16 + 2r + 8 and 32 + 2r + 8; chroma cb/cr rows 2 x
+    3 x (544 + r + 8) of 960 + r + 8, windows r + 12 and r + 20): luma
+    windows starting in every reference's segment, and the chroma
+    windows through gather_chroma_windows with per-region reference rows
+    (its starts clamp over the whole stacked component), against the
+    plain version (the same call on CPU tensors)."""
+    rng = np.random.default_rng(seed)
+    nr, h, w, pad = 3, 1088, 1920, 2 * me_range + 8
     seg = h + 2 * pad
     plane = torch.from_numpy(rng.integers(0, 256, (nr * seg, w + 2 * pad))
                              .astype(np.uint8)).cuda()
-    for win, n in ((34, 16), (50, 32)):
+    for n in (16, 32):
+        win = n + 2 * me_range + 8
         nb = (h // n) * (w // n)
         ref = rng.integers(0, nr, nb)
         ys = (ref * seg + rng.integers(0, seg - win + 1, nb)).astype(np.int32)
@@ -256,11 +250,11 @@ def test_gather_kernel_on_stacked_references_on_gpu():
         want = port.gather_windows_plain(plane, ys_t, xs_t, win)
         torch.cuda.synchronize()
         assert torch.equal(got, want), win
-    nr, hc, wc_, pc = MULTIREF_CHROMA
+    hc, wc_, pc = h // 2, w // 2, me_range + 8
     cseg = hc + 2 * pc
     cpad2 = torch.from_numpy(rng.integers(0, 256, (2, nr * cseg, wc_ + 2 * pc))
                              .astype(np.uint8)).cuda()
-    for wc, n in ((17, 8), (25, 16)):
+    for wc, n in ((me_range + 12, 8), (me_range + 20, 16)):
         by, bx = hc // n, wc_ // n
         reg_cy = torch.arange(by, dtype=torch.int32).repeat_interleave(bx) * n
         reg_cx = torch.arange(bx, dtype=torch.int32).repeat(by) * n
@@ -282,24 +276,39 @@ def test_gather_kernel_on_stacked_references_on_gpu():
 
 
 @pytest.mark.gpu
-def test_int_search_composed_current_on_gpu():
-    """The search at side 11 (me_range 5: windows 34 and 50) on a current
-    plane composed per region, the weight-compensated current where the
-    region predicts from reference 0 and the true current elsewhere (as
-    me_all_sizes builds it with weights and several references):
-    both entry points against their plain versions."""
+def test_gather_kernel_on_stacked_references_on_gpu():
+    """The stacked gather at the fast/zerolatency path's shapes (me_range
+    5: luma windows 34 and 50, chroma 17 and 25)."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
-    h, w, side = 720, 928, 11
-    rng = np.random.default_rng(13)
-    w16, cur, pen = _search_inputs("random", h, w, 16, side, seed=14)
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    _check_stacked_gather(5, seed=4)
+
+
+@pytest.mark.gpu
+def test_gather_kernel_on_stacked_references_at_me_range_10_on_gpu():
+    """The stacked gather at the medium/zerolatency path's shapes
+    (me_range 10: luma windows 44 and 60, chroma 22 and 30)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    _check_stacked_gather(10, seed=5)
+
+
+def _check_composed_search(side, seed):
+    """The search on a current plane composed per region, the
+    weight-compensated current where the region predicts from reference
+    0 and the true current elsewhere (as me_all_sizes builds it with
+    weights and several references): both entry points against their
+    plain versions."""
+    h, w = 720, 928
+    rng = np.random.default_rng(seed)
+    w16, cur, pen = _search_inputs("random", h, w, 16, side, seed=seed + 1)
     cur_s = torch.clamp(cur * 3 // 4 + 20, 0, 255)
     by16, bx16 = h // 16, w // 16
     wm16 = torch.from_numpy(rng.integers(0, 2, by16 * bx16).astype(bool))
     plane = port.search_plane(cur, cur_s, wm16.cuda(), 16)
     assert not torch.equal(plane, cur) and not torch.equal(plane, cur_s)
-    penx8, peny8 = _pens(pen, 4 * by16 * bx16, 15)
-    penx16, peny16 = _pens(pen, by16 * bx16, 16)
+    penx8, peny8 = _pens(pen, 4 * by16 * bx16, seed + 2)
+    penx16, peny16 = _pens(pen, by16 * bx16, seed + 3)
     args = (w16, plane, penx8, peny8, penx16, peny16, by16, bx16, side)
     got = port.int_search_pair_windows(*args)
     want = port.int_search_pair_windows_plain(*args)
@@ -307,16 +316,35 @@ def test_int_search_composed_current_on_gpu():
     for g, wt in zip((*got[0], *got[1]), (*want[0], *want[1])):
         assert torch.equal(g, wt)
     h32, w32 = 736, 928
-    win, cur, pen = _search_inputs("random", h32, w32, 32, side, seed=17)
+    win, cur, pen = _search_inputs("random", h32, w32, 32, side,
+                                   seed=seed + 4)
     cur_s = torch.clamp(cur * 3 // 4 + 20, 0, 255)
     wm32 = torch.from_numpy(rng.integers(0, 2, (h32 // 32) * (w32 // 32))
                             .astype(bool)).cuda()
     plane = port.search_plane(cur, cur_s, wm32, 32)
-    penx, peny = _pens(pen, pen.shape[1], 18)
+    penx, peny = _pens(pen, pen.shape[1], seed + 5)
     got = port.int_search_windows(win, plane, penx, peny, 32, side)
     want = port.int_search_windows_plain(win, plane, penx, peny, 32, side)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_int_search_composed_current_on_gpu():
+    """The composed-current search at side 11 (me_range 5, the
+    fast/zerolatency path: windows 34 and 50)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    _check_composed_search(11, seed=13)
+
+
+@pytest.mark.gpu
+def test_int_search_composed_current_at_me_range_10_on_gpu():
+    """The composed-current search at side 21 (me_range 10, the
+    medium/zerolatency path: windows 44 and 60)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    _check_composed_search(21, seed=23)
 
 
 def _encode_ippp(frames, device, me_range=10, preset=None, chunk=8):
@@ -378,6 +406,24 @@ def test_card_stream_equals_cpu_fast_zerolatency():
     assert [r.bitstream for r in card] == [r.bitstream for r in cpu]
     assert any(r.syntax.ref8 is not None for r in card[1:])
     assert any(p[..., 0].any() for r in card[1:] for p in r.syntax.sao_params)
+
+
+@pytest.mark.gpu
+def test_card_stream_equals_cpu_medium_zerolatency():
+    """--preset medium --tune zerolatency (CTU 64: the z-quadrant I-frame
+    wavefront replayed as a CUDA graph, depth-0 64x64 CUs; 3 references,
+    me_range 10, TMVP, SAO) on the 72x128 clip of
+    tests/test_torch_ctu64.py, 1 I + 6 P in chunks of 2: the same bytes
+    on the card as on the CPU, some 64x64 CU and some block predicted
+    from reference 1 or later."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    frames = medium_clip(7)
+    card = _encode_ippp(frames, "cuda", preset="medium", chunk=2)
+    cpu = _encode_ippp(frames, "cpu", preset="medium", chunk=2)
+    assert [r.bitstream for r in card] == [r.bitstream for r in cpu]
+    assert any((r.syntax.depth8 == 0).any() for r in card[1:])
+    assert any(r.syntax.ref8 is not None for r in card[1:])
 
 
 def test_search_cpu_tensors_take_the_plain_version():

@@ -3,9 +3,12 @@ analysis, the wavefront reconstruction, the intra deblock) against
 x265_tpu at 64x96 on the same numpy frame. Tolerance: exact equality of
 every decision field, coefficient plane and recon sample."""
 
+import functools
+
 import numpy as np
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from x265_tpu.common.params import EncoderConfig as RefConfig
@@ -103,9 +106,13 @@ def test_substitution_and_single_mode_prediction():
         avail = rng.random((b, 4 * n + 1)) < 0.6
         avail[0] = False
         modes = (np.arange(b) % 35).astype(np.int32)
-        sj = ref_sub(jnp.asarray(refs), jnp.asarray(avail), 8)
+        # the reference jitted: one compile per size instead of hundreds
+        # of eager ones (integer arithmetic: the same values)
+        sj = jax.jit(ref_sub, static_argnums=2)(jnp.asarray(refs),
+                                                jnp.asarray(avail), 8)
         st = port_sub(torch.from_numpy(refs), torch.from_numpy(avail), 8)
         np.testing.assert_array_equal(np.asarray(sj), st.numpy())
-        pj = ref_pred(sj, jnp.asarray(modes), n, is_luma=luma)
+        pj = jax.jit(functools.partial(ref_pred, n=n, is_luma=luma))(
+            sj, jnp.asarray(modes))
         pt = port_pred(st, torch.from_numpy(modes), n, is_luma=luma)
         np.testing.assert_array_equal(np.asarray(pj), pt.numpy())

@@ -6,10 +6,13 @@ vmap(dynamic_slice) branch. The port runs on the CPU, where the gather
 is its plain version. Tolerance: exact equality (integer search and
 integer predictions)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from x265_tpu.enc import pgop_tpu as ref_pgop
@@ -108,10 +111,13 @@ def test_me_all_sizes_and_chroma_preds(weighted):
     wvec = np.array([70, -3, 60, 2, 66, 1], np.int32) if weighted else None
     ref_pad = np.pad(ref_y.astype(np.uint8), pad_y, mode="edge")
 
-    jres, jseeds = ref.me_all_sizes(
+    # the reference as one jitted program (one compile, kept by the
+    # persistent cache, instead of hundreds of eager ones; integer
+    # arithmetic, so jitted and eager give the same values)
+    jres, jseeds = jax.jit(functools.partial(
+        ref.me_all_sizes, radius=r, pad=pad_y, bit_depth=8))(
         jnp.asarray(cur), jnp.asarray(ref_pad), jnp.asarray(cmv16),
-        jnp.int32(lam), radius=r, pad=pad_y, bit_depth=8,
-        wvec=None if wvec is None else jnp.asarray(wvec))
+        jnp.int32(lam), wvec=None if wvec is None else jnp.asarray(wvec))
     tres, tseeds = port.me_all_sizes(
         torch.from_numpy(cur), torch.from_numpy(ref_pad),
         torch.from_numpy(cmv16), lam, radius=r, pad=pad_y, bit_depth=8,
@@ -128,9 +134,11 @@ def test_me_all_sizes_and_chroma_preds(weighted):
 
     cpad2 = np.stack([np.pad(p.astype(np.uint8), pad_c, mode="edge")
                       for p in (rcb, rcr)])
-    jc = ref_pgop._chroma_preds_windowed(
-        jnp.asarray(cpad2), pad_c, jnp.asarray(rcb), jnp.asarray(rcr),
-        {n: jres[n][0] for n in (8, 16, 32)}, jseeds, r, h, w, 8,
+    jc = jax.jit(functools.partial(
+        ref_pgop._chroma_preds_windowed, pc=pad_c, radius=r, h=h, w=w,
+        bit_depth=8))(
+        jnp.asarray(cpad2), refcb=jnp.asarray(rcb), refcr=jnp.asarray(rcr),
+        mvs={n: jres[n][0] for n in (8, 16, 32)}, seeds=jseeds,
         wvec=None if wvec is None else jnp.asarray(wvec))
     tc = port_pgop._chroma_preds_windowed(
         torch.from_numpy(cpad2), pad_c, torch.from_numpy(rcb),

@@ -104,10 +104,15 @@ class IntraEncoder:
         cbp = self._upload(pad_plane(np.asarray(cb), h // 2, w // 2)[None])
         crp = self._upload(pad_plane(np.asarray(cr), h // 2, w // 2)[None])
 
+        # CTU 64: intra CUs cap at 32, so the analysis runs on the 32
+        # grid and its depths shift one level down the 64 tree
         depth8, mode8, nxn8, mode4 = analyze_intra_gop(
-            yp, qp, cfg.ctu_size, cfg.bit_depth, intra_nxn=cfg.intra_nxn)
+            yp, qp, min(cfg.ctu_size, 32), cfg.bit_depth,
+            intra_nxn=cfg.intra_nxn)
         cmode8 = analyze_chroma_gop(cbp, crp, depth8, mode8, qp,
                                     cfg.bit_depth)
+        if cfg.ctu_size == 64:
+            depth8 = depth8 + 1
         d8, m8, c8, nx8, m4 = (t.cpu().numpy() for t in
                                (depth8, mode8, cmode8, nxn8, mode4))
         syns, (ry, rcb, rcr) = reconstruct_intra_gop_gpu(

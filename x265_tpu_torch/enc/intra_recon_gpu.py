@@ -1,19 +1,27 @@
 """Batched device wavefront intra reconstruction.
 
 Counterpart of x265_tpu/enc/intra_recon_tpu.py (reconstruct_intra_gop_tpu)
-for CTU 32: CTUs are processed along anti-diagonals d = cx + 2*cy (the
-WPP dependency slope), every frame of the batch on the same wavefront.
-Inside a CTU the z-scan is a 16-step sweep with all three CU sizes (and
-the PART_NxN 4x4 sub-TUs) evaluated masked per lane; each CU is
-predicted from decoded neighbours, transformed, quantized and
-reconstructed exactly as a decoder will, so recon == decoder output.
+for CTU 32 and 64. The wavefront tile is 32 pixels at both sizes (intra
+CUs cap at 32): at CTU 32 the tiles are the CTUs, processed along
+anti-diagonals d = cx + 2*cy (the WPP dependency slope); at CTU 64 they
+are the z-scan quadrants of each CTU, processed in the longest-path
+levels of their dependency graph, and two per-lane flags carry what
+z order changes: a bottom-right quadrant has no above-right samples,
+and a top-left quadrant sees the left CTU's bottom-right quadrant as
+its below-left column. Every frame of the batch rides the same
+wavefront. Inside a tile the z-scan is a 16-step sweep with all three
+CU sizes (and the PART_NxN 4x4 sub-TUs) evaluated masked per lane;
+each CU is predicted from decoded neighbours, transformed, quantized
+and reconstructed exactly as a decoder will, so recon == decoder
+output.
 
-Storage is CTU-tiled, (tiles, 32, 32) with tile 0 a zero dummy for
-absent neighbours. On a GPU every diagonal runs one fixed launch
-sequence over lanes padded to the widest diagonal, captured once as a
-CUDA graph and replayed per diagonal; on the CPU a diagonal carries
-only its CTUs and skips the masked CU steps no lane takes. Recon and
-coefficient planes come back whole; nothing is compacted.
+Storage is tiled, (tiles, 32, 32) with tile 0 a zero dummy for absent
+neighbours. On a GPU every step runs one fixed launch sequence over
+lanes padded to the widest step, captured once as a CUDA graph and
+replayed per step (the quadrant flags are lane data the step copies
+in); on the CPU a step carries only its tiles and skips the masked CU
+steps no lane takes. Recon and coefficient planes come back whole;
+nothing is compacted.
 """
 
 from __future__ import annotations
@@ -49,12 +57,16 @@ def _zindex(bx: int, by: int) -> int:
 
 @lru_cache(maxsize=None)
 def _ref_geometry(n: int, ox: int, oy: int, p: int, ctu: int,
-                  sub: int | None = None):
+                  sub: int | None = None, bl: bool = False):
     """Static canonical-ref geometry for a CU of size n at (ox, oy):
-    (4n+1,) tile-relative coords and decode-order availability (picture
-    borders are checked per lane). `p` is the z index of the current
-    min-block; `sub` (0..3) refines availability to the 4x4 sub-TU z
-    position inside it (PART_NxN)."""
+    (4n+1,) tile-relative coords, decode-order availability (picture
+    borders are checked per lane), halo indices, and the above-right-
+    tile and below-left-column regions. `p` is the z index of the
+    current min-block; `sub` (0..3) refines availability to the 4x4
+    sub-TU z position inside it (PART_NxN). `bl` (CTU 64): the
+    below-left column (x = -1, y >= ctu) counts as available here and
+    is masked per lane; its indices point past the halo, into the
+    below-left column appended to it."""
     k = 4 * n + 1
     bshift = (ctu // 4).bit_length() - 1    # 3 luma / 2 chroma
     rx = np.zeros(k, dtype=np.int32)
@@ -72,7 +84,7 @@ def _ref_geometry(n: int, ox: int, oy: int, p: int, ctu: int,
         if y < 0:
             z_ok[i] = True          # top CTU row (or top-right CTU)
         elif x < 0:
-            z_ok[i] = y < ctu       # left CTU; below-left undecoded
+            z_ok[i] = y < ctu or bl  # left CTU; below-left: CTU-64 TL
         elif x >= ctu or y >= ctu:
             z_ok[i] = False         # right CTU / below: undecoded
         elif sub is None:
@@ -82,17 +94,22 @@ def _ref_geometry(n: int, ox: int, oy: int, p: int, ctu: int,
                 ((((y >> 2) & 1) << 1) | ((x >> 2) & 1))
             z_ok[i] = z4 < p * 4 + sub
     eh, ew = ctu + 1, 2 * ctu + 1
+    bl_reg = (rx == -1) & (ry >= ctu)
     exti = np.minimum(np.clip(ry + 1, 0, eh - 1) * ew +
                       np.clip(rx + 1, 0, ew - 1), eh * ew - 1)
-    return rx, ry, z_ok, exti.astype(np.int64)
+    if bl:
+        exti = np.where(bl_reg, eh * ew + np.clip(ry - ctu, 0, ctu - 1),
+                        exti)
+    tr_reg = (ry < 0) & (rx >= ctu)
+    return rx, ry, z_ok, exti.astype(np.int64), tr_reg, bl_reg
 
 
 @lru_cache(maxsize=None)
 def _ref_geometry_t(n: int, ox: int, oy: int, p: int, ctu: int,
-                    sub: int | None, device: torch.device):
+                    sub: int | None, bl: bool, device: torch.device):
     """_ref_geometry as device tensors, uploaded once."""
     return tuple(torch.as_tensor(a, device=device)
-                 for a in _ref_geometry(n, ox, oy, p, ctu, sub))
+                 for a in _ref_geometry(n, ox, oy, p, ctu, sub, bl))
 
 
 def _substitute(refs: torch.Tensor, avail: torch.Tensor,
@@ -137,18 +154,24 @@ def _intra_tq(orig: torch.Tensor, pred: torch.Tensor, n: int, qp: int,
     return rec, torch.where(cbf[:, None, None], coefs, 0)
 
 
-def _process_cu(ext, cf_tile, orig_tile, x0s, y0s, modes, active, n, ox,
-                oy, p, qp, bit_depth, w, h, is_luma, ctu, sign_hiding,
-                sub=None):
+def _process_cu(ext, flat, cf_tile, orig_tile, x0s, y0s, modes, active, n,
+                ox, oy, p, qp, bit_depth, w, h, is_luma, ctu, sign_hiding,
+                sub=None, quad=None):
     """Reconstruct one masked CU (size n at tile position (ox, oy)) per
-    lane, in place. ext: (B, ctu+1, 2ctu+1) halo tiles; cf_tile,
-    orig_tile: (B, ctu, ctu); modes/active: (B,)."""
-    rx, ry, z_ok, exti = _ref_geometry_t(n, ox, oy, p, ctu, sub, ext.device)
-    b = ext.shape[0]
-    refs = ext.reshape(b, -1)[:, exti]
+    lane, in place. ext: (B, ctu+1, 2ctu+1) halo tiles, a view of flat
+    (_assemble_ext); cf_tile, orig_tile: (B, ctu, ctu); modes/active:
+    (B,). quad (CTU 64 only): (tr_ok, bl_ok) (B,) bool, whether the
+    tile's above-right tile and below-left column (flat's tail) are
+    decoded."""
+    rx, ry, z_ok, exti, tr_reg, bl_reg = _ref_geometry_t(
+        n, ox, oy, p, ctu, sub, quad is not None, ext.device)
+    refs = flat[:, exti]
     gx = x0s[:, None] + rx[None, :]
     gy = y0s[:, None] + ry[None, :]
     avail = z_ok[None, :] & (gx >= 0) & (gy >= 0) & (gx < w) & (gy < h)
+    if quad is not None:
+        avail = avail & (quad[0][:, None] | ~tr_reg[None, :]) & \
+            (quad[1][:, None] | ~bl_reg[None, :])
     refs = _substitute(refs, avail, bit_depth)
     pred = intra_pred_single_mode(refs, modes, n, is_luma=is_luma,
                                   bit_depth=bit_depth)
@@ -165,34 +188,77 @@ def _process_cu(ext, cf_tile, orig_tile, x0s, y0s, modes, active, n, ox,
 
 
 def _assemble_ext(tiles, ti, ti_top, ti_topright, ti_topleft, ti_left,
-                  n: int):
-    """(B, n+1, 2n+1) halo tiles from the tiled store (tile 0 = dummy)."""
+                  n: int, ti_belowleft=None):
+    """(B, n+1, 2n+1) halo tiles from the tiled store (tile 0 = dummy),
+    and the flat (B, (n+1)(2n+1)) buffer they view; with ti_belowleft
+    (CTU 64) the buffer has a tail of n, the right column of the
+    below-left tile. Returns (ext, flat)."""
     b = ti.shape[0]
-    ext = torch.zeros((b, n + 1, 2 * n + 1), dtype=torch.int32,
-                      device=tiles.device)
+    k = (n + 1) * (2 * n + 1)
+    flat = torch.zeros((b, k + (0 if ti_belowleft is None else n)),
+                       dtype=torch.int32, device=tiles.device)
+    ext = flat[:, :k].view(b, n + 1, 2 * n + 1)
     ext[:, 0, 0] = tiles[ti_topleft][:, -1, -1]
     ext[:, 0, 1:n + 1] = tiles[ti_top][:, -1, :]
     ext[:, 0, n + 1:] = tiles[ti_topright][:, -1, :]
     ext[:, 1:, 0] = tiles[ti_left][:, :, -1]
     ext[:, 1:, 1:n + 1] = tiles[ti]
-    return ext
+    if ti_belowleft is not None:
+        flat[:, k:] = tiles[ti_belowleft][:, :, -1]
+    return ext, flat
 
 
 @lru_cache(maxsize=None)
-def _wavefront_schedule(ncx: int, ncy: int):
-    """Per anti-diagonal d = cx + 2*cy, the (cx, cy) CTUs on it."""
-    ndiag = (ncx - 1) + 2 * (ncy - 1) + 1
-    return [[(d - 2 * cy, cy) for cy in range(ncy) if 0 <= d - 2 * cy < ncx]
-            for d in range(ndiag)]
+def _wavefront_schedule(ncx: int, ncy: int, ctu: int = CTU):
+    """Per wavefront step, the (cx, cy) tiles on it. CTU 32: the
+    anti-diagonals d = cx + 2*cy. CTU 64: the tiles are z-scan
+    quadrants, and a top-left quadrant also waits for its below-left
+    tile (the left CTU's bottom-right quadrant) while a bottom-right
+    one does not wait for its above-right tile; the steps are the
+    longest-path levels of that dependency graph, tiles in raster
+    order within a step."""
+    if ctu != 64:
+        ndiag = (ncx - 1) + 2 * (ncy - 1) + 1
+        return [[(d - 2 * cy, cy) for cy in range(ncy)
+                 if 0 <= d - 2 * cy < ncx] for d in range(ndiag)]
+
+    def deps(cx, cy):
+        q = (cy % 2) * 2 + (cx % 2)
+        out = [(cx + dx, cy + dy)
+               for dx, dy in ((-1, 0), (0, -1), (-1, -1), (1, -1))
+               if not (q == 3 and (dx, dy) == (1, -1))]
+        if q == 0:
+            out.append((cx - 1, cy + 1))
+        return [(x, y) for x, y in out if 0 <= x < ncx and 0 <= y < ncy]
+
+    tiles = [(cx, cy) for cy in range(ncy) for cx in range(ncx)]
+    dep = {t: deps(*t) for t in tiles}
+    lev = dict.fromkeys(tiles, 0)
+    changed = True
+    while changed:
+        changed = False
+        for t in tiles:
+            v = 1 + max((lev[d] for d in dep[t]), default=-1)
+            if v != lev[t]:
+                lev[t], changed = v, True
+    steps = [[] for _ in range(max(lev.values()) + 1)]
+    for t in tiles:
+        steps[lev[t]].append(t)
+    return steps
 
 
 FAR = 1 << 20          # origin of a padding lane: outside every picture
 
 
-def _lane_indices(cells, nf: int, ncx: int, ncy: int, lanes: int):
-    """Per-lane tile ids for one diagonal (luma; cb|cr lanes for
+def _lane_indices(cells, nf: int, ncx: int, ncy: int, lanes: int,
+                  ctu: int = CTU):
+    """Per-lane tile ids for one wavefront step (luma; cb|cr lanes for
     chroma), frame-major, padded to `lanes` lanes per frame with lanes
-    outside the picture that read and write the dummy tile 0."""
+    outside the picture that read and write the dummy tile 0. At CTU 64
+    also the quadrant flags: tr_ok (0 for a bottom-right quadrant, whose
+    above-right tile is decoded later) and, for a top-left quadrant,
+    its below-left tile (the left CTU's bottom-right quadrant) and
+    bl_ok, whether that tile exists."""
     nct = ncx * ncy
 
     def tid(f, cy, cx):
@@ -203,26 +269,35 @@ def _lane_indices(cells, nf: int, ncx: int, ncy: int, lanes: int):
     rows = []
     for f in range(nf):
         for cx, cy in cells:
+            tl = not (cx & 1) and not (cy & 1)
+            bl = tid(f, cy + 1, cx - 1) if tl else 0
             rows.append((cx * CTU, cy * CTU, tid(f, cy, cx),
                          tid(f, cy - 1, cx), tid(f, cy - 1, cx + 1),
-                         tid(f, cy - 1, cx - 1), tid(f, cy, cx - 1),
-                         f * nct + cy * ncx + cx, 1))
-        rows += [(FAR, FAR, 0, 0, 0, 0, 0, 0, 0)] * (lanes - len(cells))
+                         tid(f, cy - 1, cx - 1), tid(f, cy, cx - 1), bl,
+                         f * nct + cy * ncx + cx, 1,
+                         0 if (cx & 1) and (cy & 1) else 1, int(bl > 0)))
+        rows += [(FAR, FAR, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0)] * \
+            (lanes - len(cells))
     a = np.asarray(rows, dtype=np.int64)
-    out = {"x0": a[:, 0], "y0": a[:, 1], "self_o": a[:, 7],
-           "real": a[:, 8] != 0}
-    for j, key in enumerate(("self", "top", "topright", "topleft", "left")):
+    out = {"x0": a[:, 0], "y0": a[:, 1], "self_o": a[:, 8],
+           "real": a[:, 9] != 0}
+    keys = ("self", "top", "topright", "topleft", "left") + \
+        (("belowleft",) if ctu == 64 else ())
+    for j, key in enumerate(keys):
         t = a[:, 2 + j]
         out[key + "_y"] = t
         out[key + "_c"] = np.concatenate(
             [t, np.where(t > 0, t + nf * nct, 0)])
-    out["self_oc"] = np.concatenate([a[:, 7], a[:, 7] + nf * nct])
+    out["self_oc"] = np.concatenate([a[:, 8], a[:, 8] + nf * nct])
+    if ctu == 64:
+        out["tr_ok"] = a[:, 10] != 0
+        out["bl_ok"] = a[:, 11] != 0
     return out
 
 
 def _diag_step(st: dict, inp: dict, host, *, qp: int, qpc: int, bd: int,
                w: int, h: int, sh: bool, use_nxn: bool) -> None:
-    """One CTU anti-diagonal across the lanes, updating the tiled stores
+    """One wavefront step across the lanes, updating the tiled stores
     st (rec_y, rec_c, cf_y, cf_c; org_y, org_c read) in place. inp holds
     the lanes' device tensors; host, when given, is (depth, nxn) numpy
     tiles of the lanes so masked CU steps that no lane takes are
@@ -232,12 +307,21 @@ def _diag_step(st: dict, inp: dict, host, *, qp: int, qpc: int, bd: int,
     x0s, y0s = inp["x0"], inp["y0"]
     x0c = torch.cat([x0s, x0s]) // 2
     y0c = torch.cat([y0s, y0s]) // 2
-    ext_y = _assemble_ext(st["rec_y"], inp["self_y"], inp["top_y"],
-                          inp["topright_y"], inp["topleft_y"], inp["left_y"],
-                          CTU)
-    ext_c = _assemble_ext(st["rec_c"], inp["self_c"], inp["top_c"],
-                          inp["topright_c"], inp["topleft_c"], inp["left_c"],
-                          half)
+
+    def ext_of(tiles, sfx, n):
+        return _assemble_ext(tiles, *(inp[k + sfx] for k in (
+            "self", "top", "topright", "topleft", "left")), n,
+            inp.get("belowleft" + sfx))
+
+    ext_y, flat_y = ext_of(st["rec_y"], "_y", CTU)
+    ext_c, flat_c = ext_of(st["rec_c"], "_c", half)
+    if "tr_ok" in inp:
+        # CTU 64: the z-quadrant flags, lane data like the tile ids
+        tr, bl = inp["tr_ok"], inp["bl_ok"]
+        quad_y = (tr, bl)
+        quad_c = (torch.cat([tr, tr]), torch.cat([bl, bl]))
+    else:
+        quad_y = quad_c = None
     oy_t = st["org_y"][inp["self_o"]]
     oc_t = st["org_c"][inp["self_oc"]]
     b = x0s.shape[0]
@@ -245,9 +329,6 @@ def _diag_step(st: dict, inp: dict, host, *, qp: int, qpc: int, bd: int,
     cfy_t = torch.zeros((b, CTU, CTU), dtype=torch.int32, device=dev)
     cfc_t = torch.zeros((2 * b, half, half), dtype=torch.int32, device=dev)
     dt, mt, ct, nt, m4t = (inp[k] for k in ("dt", "mt", "ct", "nt", "m4t"))
-
-    def takes(cells_np) -> bool:
-        return host is None or bool(cells_np.any())
 
     for p in range(16):
         ox, oy = _zpos(p)
@@ -273,20 +354,22 @@ def _diag_step(st: dict, inp: dict, host, *, qp: int, qpc: int, bd: int,
             if host is not None and not any_c().any():
                 continue
             if host is None or any_y().any():
-                _process_cu(ext_y, cfy_t, oy_t, x0s, y0s, m, act, n, cox,
-                            coy, p, qp, bd, w, h, True, CTU, sh)
-            _process_cu(ext_c, cfc_t, oc_t, x0c, y0c, torch.cat([cm, cm]),
-                        torch.cat([cact, cact]), n >> 1, cox >> 1, coy >> 1,
-                        p, qpc, bd, w // 2, h // 2, False, half, sh)
+                _process_cu(ext_y, flat_y, cfy_t, oy_t, x0s, y0s, m, act, n,
+                            cox, coy, p, qp, bd, w, h, True, CTU, sh,
+                            quad=quad_y)
+            _process_cu(ext_c, flat_c, cfc_t, oc_t, x0c, y0c,
+                        torch.cat([cm, cm]), torch.cat([cact, cact]), n >> 1,
+                        cox >> 1, coy >> 1, p, qpc, bd, w // 2, h // 2,
+                        False, half, sh, quad=quad_c)
         if use_nxn and (host is None or ((d_np == 2) & nx_np).any()):
             # PART_NxN: four 4x4 luma PU/TUs in z order, each predicting
             # from the previous sub-TUs' reconstruction
             act4 = (d == 2) & is_nxn
             for s_, (sx, sy) in enumerate(((0, 0), (4, 0), (0, 4), (4, 4))):
                 m4 = m4t[:, (oy + sy) >> 2, (ox + sx) >> 2]
-                _process_cu(ext_y, cfy_t, oy_t, x0s, y0s, m4, act4, 4,
-                            ox + sx, oy + sy, p, qp, bd, w, h, True, CTU, sh,
-                            sub=s_)
+                _process_cu(ext_y, flat_y, cfy_t, oy_t, x0s, y0s, m4, act4,
+                            4, ox + sx, oy + sy, p, qp, bd, w, h, True, CTU,
+                            sh, sub=s_, quad=quad_y)
     # padding lanes write the dummy tile 0, which is only ever read as
     # an unavailable neighbour
     st["rec_y"][inp["self_y"]] = ext_y[:, 1:, 1:1 + CTU]
@@ -296,10 +379,11 @@ def _diag_step(st: dict, inp: dict, host, *, qp: int, qpc: int, bd: int,
 
 
 def _run_graphed(st: dict, diag_inputs: list[dict], step) -> None:
-    """Run the diagonal steps as replays of one CUDA graph: the step is
-    captured once (after a warm-up of diagonal 0, which a step may
-    repeat: it reads only earlier diagonals' tiles), then each diagonal
-    copies its lane tensors into the static inputs and replays. Replays
+    """Run the wavefront steps as replays of one CUDA graph: the step is
+    captured once (after a warm-up of step 0, which a step may repeat:
+    it reads only earlier steps' tiles), then each step copies its lane
+    tensors (tile ids, decisions and, at CTU 64, the quadrant flags)
+    into the static inputs and replays. Replays
     cut the per-launch host cost of the ~10^4 small kernels a step
     issues, which dominates the eager wavefront."""
     static = {k: v.clone() for k, v in diag_inputs[0].items()}
@@ -329,17 +413,20 @@ def reconstruct_intra_gop_gpu(orig_y: torch.Tensor, orig_cb: torch.Tensor,
 
     orig_*: (F, H, W) uint8 planes on the device (8-aligned coded
     size); depth8/mode8/cmode8/nxn8: (F, H/8, W/8) and mode4
-    (F, H/4, W/4) host decision maps. Returns (syns, (rec_y, rec_cb,
-    rec_cr)): FrameIntraSyntax records with host coefficient planes,
-    and int32 device recon planes (F, H, W) / (F, H/2, W/2).
+    (F, H/4, W/4) host decision maps, depth8 relative to the SPS CTU
+    (at CTU 64 never 0: intra CUs cap at 32). Returns (syns, (rec_y,
+    rec_cb, rec_cr)): FrameIntraSyntax records with host coefficient
+    planes, and int32 device recon planes (F, H, W) / (F, H/2, W/2).
 
-    fixed_steps (default: on for CUDA): every diagonal runs the same
-    launch sequence over lanes padded to the widest diagonal, replayed
-    as one CUDA graph on a GPU; off, a diagonal carries only its CTUs
-    and skips CU steps no lane takes. Both give the same result."""
-    if cfg.ctu_size != CTU:
+    fixed_steps (default: on for CUDA): every wavefront step runs the
+    same launch sequence over lanes padded to the widest step, replayed
+    as one CUDA graph on a GPU; off, a step carries only its tiles and
+    skips CU steps no lane takes. Both give the same result."""
+    if cfg.ctu_size not in (32, 64):
         raise NotImplementedError(
-            "CTU 16/64: not ported yet (ROADMAP queue 1 item 14)")
+            "CTU 16 (all-intra, the host-recon I path): not ported yet "
+            "(ROADMAP queue 1 item 18)")
+    ctu64 = cfg.ctu_size == 64
     nf, h, w = orig_y.shape
     dev = orig_y.device
     fixed = dev.type == "cuda" if fixed_steps is None else fixed_steps
@@ -376,7 +463,10 @@ def reconstruct_intra_gop_gpu(orig_y: torch.Tensor, orig_cb: torch.Tensor,
         return pad.reshape(nf, ncy, k, ncx, k).transpose(0, 1, 3, 2, 4) \
             .reshape(nf * nct, k, k)
 
-    dec = {"dt": tile_dec(depth8, 2, n8, n8y, n8x),
+    # tile-relative depth: at CTU 64 the SPS depth is one level deeper
+    # than the 32-tile's (the forced split of the 64 level)
+    dec = {"dt": tile_dec(np.maximum(depth8.astype(np.int64) - 1, 0)
+                          if ctu64 else depth8, 2, n8, n8y, n8x),
            "mt": tile_dec(mode8, 1, n8, n8y, n8x),
            "ct": tile_dec(mode8 if cmode8 is None else cmode8, 1, n8, n8y,
                           n8x),
@@ -384,11 +474,12 @@ def reconstruct_intra_gop_gpu(orig_y: torch.Tensor, orig_cb: torch.Tensor,
            "m4t": tile_dec(mode4 if use_nxn else None, 1, n4, 2 * n8y,
                            2 * n8x)}
     fill = {"dt": 2, "mt": 1, "ct": 1, "nt": 0, "m4t": 1}
-    diags = _wavefront_schedule(ncx, ncy)
+    diags = _wavefront_schedule(ncx, ncy, cfg.ctu_size)
     bmax = max(len(c) for c in diags)
     inputs, hosts = [], []
     for cells in diags:
-        ix = _lane_indices(cells, nf, ncx, ncy, bmax if fixed else len(cells))
+        ix = _lane_indices(cells, nf, ncx, ncy, bmax if fixed else len(cells),
+                           cfg.ctu_size)
         real = ix.pop("real")
         for k, a in dec.items():
             v = a[ix["self_o"]]

@@ -1,17 +1,18 @@
 """P-frame device pipeline: an IPPP chunk frame after frame on the GPU.
 
-Counterpart of x265_tpu/enc/pgop_tpu.py for CTU 32 without dQP: one or
-several references (multi-reference selection from the coarse pass),
-deblock, SAO, sign hiding, RQT depth 1, weightp, psy-rd,
-intra-in-inter. The reference expresses the chain as one lax.scan; here
-it is a Python loop whose body does, all on the device: coarse
-quarter-res search (one per reference) -> windowed ME for every block
-of every size (ops/me_win.py, on the window-gather and integer-search
-kernels) -> windowed chroma MC -> intra 8x8 estimate -> MC + transform
-+ quant + recon at every size with a leaf-RDO depth decision ->
-intra-in-inter -> in-loop deblock and SAO on the coded crop. With R
-references the carried reference is the stack of the R most recent
-pictures. submit_pgop_gpu enqueues a chunk and
+Counterpart of x265_tpu/enc/pgop_tpu.py for CTU 32 and 64 without dQP:
+one or several references (multi-reference selection from the coarse
+pass), deblock, SAO, sign hiding, RQT depth 1, weightp, psy-rd,
+intra-in-inter; at CTU 64 a depth-0 64x64 CU is built from the 32-level
+content where its four 32-blocks agree. The reference expresses the
+chain as one lax.scan; here it is a Python loop whose body does, all on
+the device: coarse quarter-res search (one per reference) -> windowed
+ME for every block of every size (ops/me_win.py, on the window-gather
+and integer-search kernels) -> windowed chroma MC -> intra 8x8 estimate
+-> MC + transform + quant + recon at every size with a leaf-RDO depth
+decision -> intra-in-inter -> in-loop deblock and SAO on the coded
+crop. With R references the carried reference is the stack of the R
+most recent pictures. submit_pgop_gpu enqueues a chunk and
 returns before the device finishes it; collect_pgop_gpu downloads
 decision fields, coefficient planes (whole, no compaction) and, on
 request, the recon.
@@ -267,12 +268,15 @@ def _rd_depth_decision(sse: dict, bits: dict, mvs: dict, lam2: float,
     n8x) and the 8x8 inter leaf cost. CUs over the coded edge are forced
     to split. refs: per-size (by, bx) L0 refIdx grids. alt8_cost: RD
     cost of the 8x8 INTRA candidate per min-cell; where it beats the
-    inter leaf it replaces the 8-level cost."""
+    inter leaf it replaces the 8-level cost. With a 64 level in sse
+    (CTU 64) the depths count from the 64 CU: 0 where the 64 CU is
+    kept, the 32-level decision one level deeper elsewhere."""
     dev = sse[8].device
     big = 1e18
+    has64 = 64 in sse
     cost = {}
     intra_pref = None
-    for n in SIZES:
+    for n in SIZES + ((64,) if has64 else ()):
         by, bx = h // n, w // n
         c = sse[n] + lam2 * (bits[n] + hdr_bits)
         if n == 8 and alt8_cost is not None:
@@ -295,6 +299,8 @@ def _rd_depth_decision(sse: dict, bits: dict, mvs: dict, lam2: float,
     k32 = _up(keep32, 4)[:n8y, :n8x]
     k16 = _up(keep16, 2)[:n8y, :n8x]
     depth8 = torch.where(k32, 0, torch.where(k16, 1, 2)).to(torch.int32)
+    if has64:
+        depth8 = depth8 + 1
 
     def up_mv(n, k):
         return _up(mvs[n].reshape(h // n, w // n, 2), k)[:n8y, :n8x]
@@ -307,6 +313,14 @@ def _rd_depth_decision(sse: dict, bits: dict, mvs: dict, lam2: float,
 
     ref8 = torch.where(k32, up_ref(32, 4),
                        torch.where(k16, up_ref(16, 2), up_ref(8, 1)))
+    if has64:
+        agg32 = torch.where(keep32, cost[32], ch32)
+        agg32 = torch.where(agg32 >= big, 0.0, agg32)
+        ch64 = block_sum_seq(agg32, h // 64, 2, w // 64) + split_cost
+        k64 = _up(cost[64] <= ch64, 8)[:n8y, :n8x]
+        depth8 = torch.where(k64, 0, depth8)
+        mv8 = torch.where(k64[..., None], up_mv(64, 8), mv8)
+        ref8 = torch.where(k64, up_ref(64, 8), ref8)
     if intra_pref is None:
         intra_pref = torch.zeros((n8y, n8x), dtype=torch.bool, device=dev)
     inter_c8 = sse[8] + lam2 * (bits[8] + hdr_bits)
@@ -348,15 +362,50 @@ def _blk_sse(rec, orig, by, bx, k):
     return (d * d).reshape(by, k, bx, k).sum((1, 3)).to(F32)
 
 
+def _cu64_candidate(sse, bits, mvs, refs, tusplit, m_scale: float,
+                    nrefs: int, h: int, w: int) -> None:
+    """The depth-0 64x64 candidate of CTU 64, from the 32-level content
+    (x265 maxCUSize 64), added in place as sse[64], bits[64], mvs[64]
+    and refs[64]. Eligible where the four 32-blocks share (mv, ref) and
+    none chose a TU split (a 64 CU's TUs are exactly the four 32s,
+    7.4.9.8): the 2x2 sum of the 32-level SSE, plus 1e18 elsewhere; the
+    2x2 sum of the 32-level bits without their MVD and ref_idx bits,
+    plus one MVD (left neighbour on the 64 grid) and one ref_idx."""
+    by64, bx64 = h // 64, w // 64
+    mv32 = mvs[32].reshape(h // 32, w // 32, 2)
+    r32 = refs[32].reshape(h // 32, w // 32)
+    mv_tl, r_tl = mv32[0::2, 0::2], r32[0::2, 0::2]
+    elig = torch.ones((by64, bx64), dtype=torch.bool, device=mv32.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            elig &= (mv32[dy::2, dx::2] == mv_tl).all(-1) & \
+                (r32[dy::2, dx::2] == r_tl)
+    if 32 in tusplit:
+        elig &= ~tusplit[32].reshape(by64, 2, bx64, 2).any(3).any(1)
+    sse[64] = block_sum_seq(sse[32], by64, 2, bx64) + \
+        torch.where(elig, 0.0, _f32(1e18, mv32.device))
+    coeff32 = bits[32] - m_scale * _mvd_bits_est(mv32)
+    if nrefs > 1:
+        coeff32 = coeff32 - torch.clamp(r32 + 1, max=nrefs - 1).to(F32)
+    bits[64] = block_sum_seq(coeff32, by64, 2, bx64) + \
+        m_scale * _mvd_bits_est(mv_tl)
+    if nrefs > 1:
+        bits[64] = bits[64] + torch.clamp(r_tl + 1, max=nrefs - 1).to(F32)
+    mvs[64], refs[64] = mv_tl, r_tl
+
+
 def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
                   sign_hiding, real_h, real_w, preds, cpreds, refs_grid,
-                  nrefs: int, psy_rd=0.0, rqt=False, alt8_cost=None):
+                  nrefs: int, psy_rd=0.0, rqt=False, alt8_cost=None,
+                  ctu: int = 32):
     """MC + residual coding at EVERY CU size with that size's own MV
     field (predictions from the windowed ME), leaf-RDO depth decision
     from the true recon SSE + estimated bits, then compose by depth.
     RQT: 16/32 CUs may code four half-size TUs on the same prediction.
     refs_grid: per-size refIdx grids among nrefs references, whose
-    ref_idx bins enter the bits. Returns (rec_y, cf_y, rec_cb, cf_cb, rec_cr,
+    ref_idx bins enter the bits. At CTU 64 the depth-0 candidate is
+    synthesised from the 32 level (_cu64_candidate) and its CUs reuse
+    the 32-level planes. Returns (rec_y, cf_y, rec_cb, cf_cb, rec_cr,
     cf_cr, depth8, mv8, tusplit8, ref8, intra_pref, inter_c8)."""
     dev = oy.device
     calib = calib_for_qp(qp)
@@ -463,21 +512,28 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
             psy_n = de.reshape(h // n, k, w // n, k).sum((1, 3))
             sse[n] = sse[n] + scale * psy_n
 
+    mvs, refs_grid = dict(mvs), dict(refs_grid)
+    if ctu == 64:
+        _cu64_candidate(sse, bits, mvs, refs_grid, tusplit, m_scale, nrefs,
+                        h, w)
     depth8, mv8, ref8, intra_pref, inter_c8 = _rd_depth_decision(
         sse, bits, mvs, lam2, real_h, real_w, h, w,
         hdr_bits=float(calib[3]), split_bits=float(calib[4]),
         refs=refs_grid, alt8_cost=alt8_cost)
 
     n8y, n8x = h // 8, w // 8
+    dof = 1 if ctu == 64 else 0          # the depth of the 32 level
     zb = torch.zeros((n8y, n8x), dtype=torch.bool, device=dev)
     ts32 = _up(tusplit[32], 4)[:n8y, :n8x] if 32 in tusplit else zb
     ts16 = _up(tusplit[16], 2)[:n8y, :n8x] if 16 in tusplit else zb
-    tusplit8 = torch.where(depth8 == 0, ts32,
-                           torch.where(depth8 == 1, ts16, zb))
+    tusplit8 = torch.where(depth8 == dof, ts32,
+                           torch.where(depth8 == dof + 1, ts16, zb))
 
+    # depth -> content: a depth-0 64 CU codes the 32-level planes (the
+    # same predictions, four 32x32 TUs)
     out = [torch.zeros_like(p) for p in planes[8]]
-    for d, n in ((0, 32), (1, 16), (2, 8)):
-        m8 = depth8 == d
+    for n, m8 in ((32, depth8 <= dof), (16, depth8 == dof + 1),
+                  (8, depth8 == dof + 2)):
         mpx = _up(m8, 8)
         mpx_c = _up(m8, 4)
         for i, p in enumerate(planes[n]):
@@ -889,7 +945,7 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
                 nrefs: int):
     """One P frame. refs: (ry, rcb, rcr) (nrefs, ...) int32 stacks of
     the nrefs most recent reference pictures at the scan size
-    (32-multiples, edge-padded), slot 0 the newest; oy/ocb/ocr int32
+    (CTU multiples, edge-padded), slot 0 the newest; oy/ocb/ocr int32
     source planes at the scan size; wvec: (6,) int32 weights or None.
     Returns (fields, next references): fields = (depth8, mv8, cf_y,
     cf_cb, cf_cr, intra8, imode8, tusplit8, ref8, sao, rec_y, rec_cb,
@@ -952,7 +1008,7 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
      ref8, intra_pref, inter_c8) = _mc_recon_all(
         oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth, sign_hiding, rh, rw,
         preds=preds, cpreds=cpreds, refs_grid=refs_grid, nrefs=nrefs,
-        psy_rd=psy_rd, rqt=rqt, alt8_cost=icost8_m)
+        psy_rd=psy_rd, rqt=rqt, alt8_cost=icost8_m, ctu=ctu)
 
     if intra_ii:
         (rec_y, rec_cb, rec_cr, cf_y, cf_cb, cf_cr, intra8,
@@ -1020,7 +1076,8 @@ def check_pgop_config(cfg: EncoderConfig) -> None:
     """Raise for every option the P-chunk path of this package does not
     implement (NotImplementedError naming its ROADMAP queue item)."""
     unported = [
-        (cfg.ctu_size != 32, "CTU 16/64", 14),
+        (cfg.ctu_size == 16, "CTU 16 (all-intra, the host-recon I path)",
+         18),
         (cfg.dqp_enabled, "dQP / AQ / cuTree", 15),
         (cfg.rdoq or cfg.nr_inter or cfg.lowpass_dct,
          "RDOQ / noise reduction / lowpass DCT", 16),
@@ -1066,8 +1123,9 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
         raise ValueError(f"reference on {ref.y.device}, device {dev} "
                          f"requested")
     f, h, w = orig_y.shape
-    hp = (h + 31) // 32 * 32
-    wp = (w + 31) // 32 * 32
+    m = max(32, cfg.ctu_size)        # scan grids are CTU multiples
+    hp = (h + m - 1) // m * m
+    wp = (w + m - 1) // m * m
     qp = cfg.qp if qp is None else qp
     qpc = chroma_qp(qp)
 
