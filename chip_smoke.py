@@ -14,7 +14,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      version at the four bench-path window shapes, uint8 and uint16, and
      at the four fast/zerolatency-path shapes (three references stacked
      in one plane; uint8) and the four medium/zerolatency-path shapes
-     (three references stacked, me_range 10), exact equality, timed
+     (three references stacked, me_range 10) and the four shapes of the
+     fast path with B frames (one reference per plane, me_range 5),
+     exact equality, timed
      beside a one-call PyTorch indexing yardstick and its memory bound;
      the integer-search
      kernel against its plain version at the two bench-path shapes
@@ -54,8 +56,18 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      references, me_range 10, TMVP, merge 3, SAO): the same clip,
      passes, launch checks and shares as phase 6, with the share of
      P-frame area coded as 64x64 CUs, then one profile of its P chunk;
-  8. the kernels line (one JSON object; launches summed over the timed
-     passes of the three paths, and per path; times and bounds per P
+  8. the fast path with B frames at full size (--preset fast, no tune:
+     3 B frames, b-adapt, 3 references, TMVP, SAO, me_range 5), driven
+     as the CLI drives it (encode_random_access): card == CPU on a 64x96
+     clip, 1 I + 8 frames in mini-GOPs, where some B cells must be
+     bi-predicted and some L1-only, and on 1080p I + one mini-GOP; then
+     the bench clip, one warm-up pass and one timed pass, whose first
+     frames must reproduce the 1080p leg; in the timed pass the gather
+     must have launched 4 times per anchor P and 8 per B frame, the
+     search 2 and 4; then one profile of a mini-GOP (device rows and
+     the ten ops with the most host time);
+  9. the kernels line (one JSON object; launches summed over the timed
+     passes of the four paths, and per path; times and bounds per P
      frame at the bench path's shapes, as its ms_of says), the card
      line, and the last line
      {"ok": true, "device": {...}}.
@@ -121,6 +133,15 @@ MEDIUM_SHAPES = (
      2 * 8160),
     ("chroma_32block_30_3refs", 2 * 3 * (544 + 36), 960 + 36, 30,
      2 * 2040),
+)
+# the fast path with B frames at 1080p: me_range 5 (side 11, the fast
+# search shapes) and one reference per list in its own plane: luma
+# 1088 + 36 rows, cb/cr rows 2 x (544 + 26), windows 34/50 and 17/25
+FAST_B_SHAPES = (
+    ("luma_16region_34", 1088 + 36, 1920 + 36, 34, 8160),
+    ("luma_32block_50", 1088 + 36, 1920 + 36, 50, 2040),
+    ("chroma_16region_17", 2 * (544 + 26), 960 + 26, 17, 2 * 8160),
+    ("chroma_32block_25", 2 * (544 + 26), 960 + 26, 25, 2 * 2040),
 )
 # untimed exactness rows at other me_ranges: (case, side)
 OTHER_SIDES = (("random_me_range_7", 15),    # windows 38/54, odd rows
@@ -206,6 +227,26 @@ def medium_clip(n, h=72, w=128, pan=2, seed=7, split=96):
     return out
 
 
+def b_clip(nf, h=64, w=96, seed=7):
+    """The B test clip (tests/test_torch_bframes.py and
+    tests/test_torch_gpu.py encode it too): a pan with a band on the
+    left whose texture scrolls down, so the B frames code uni-L0,
+    uni-L1 and bi cells."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = ((xx * 5 + yy * 3) % 200 + 20).astype(np.int32)
+    tex = rng.integers(0, 256, (h, w))
+    frames = []
+    for i in range(nf):
+        y = np.roll(base, 2 * i, axis=1) + rng.integers(-4, 5, (h, w))
+        y[:, :24] = np.roll(tex, 3 * i, axis=0)[:, :24]
+        y = np.clip(y, 0, 255).astype(np.uint8)
+        cb = np.clip(110 + (xx[::2, ::2] >> 3) + i, 0, 255).astype(np.uint8)
+        cr = np.clip(140 - (yy[::2, ::2] >> 2), 0, 255).astype(np.uint8)
+        frames.append((y, cb, cr))
+    return frames
+
+
 def bench_config(h, w, me_range=10):
     """The bench path's configuration: CQP 32, deblock, no SAO, one
     reference."""
@@ -231,6 +272,15 @@ def medium_config(h, w):
     cfg = EncoderConfig(width=w, height=h, qp=QP)
     cfg.apply_preset("medium")
     cfg.apply_tune("zerolatency")
+    return cfg
+
+
+def fast_b_config(h, w):
+    """--preset fast at CQP 32, no tune: 3 B frames with b-adapt, 3
+    references, TMVP, SAO, me_range 5, CTU 32."""
+    from x265_tpu_torch.common.params import EncoderConfig
+    cfg = EncoderConfig(width=w, height=h, qp=QP)
+    cfg.apply_preset("fast")
     return cfg
 
 
@@ -264,6 +314,82 @@ def encode_ippp(frames, device, cfg, timing=None, chunk=CHUNK):
         torch.cuda.synchronize()
         timing["p_frames_s"] = time.perf_counter() - t0
     return [r0] + rs
+
+
+def encode_random_access(frames, device, cfg, timing=None):
+    """The CLI's B loop (x265_tpu/cli.py:472-486, 562-572) through the
+    port's user entry points: frame 0 the only I frame (QP - 3); later
+    frames queue, and once bframes + 1 are queued Lookahead.plan_minigop
+    picks the B-run and encode_minigop codes it with its anchor P; the
+    rest is flushed at the end. Returns (results in decode order, the
+    mini-GOP lengths). `timing`, when a dict, receives the I frame's
+    seconds, the anchor P frames' (the device is synchronized around
+    each anchor), the lookahead's (plan_minigop, numpy on the host),
+    the B frames' native CABAC and packaging (b_emit_s) and the B
+    frames' whole (b_frames_s: the rest, b_emit_s included)."""
+    from x265_tpu_torch.enc import IntraEncoder
+    from x265_tpu_torch.enc.lookahead import Lookahead
+    enc = IntraEncoder(cfg, device=device)
+    la = Lookahead(cfg)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    secs = Counter()
+
+    def timed(name, fn, synced):
+        def run(*a, **k):
+            if synced:
+                sync()
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            if synced:
+                sync()
+            secs[name] += time.perf_counter() - t
+            return r
+        return run
+
+    enc.encode_frame_p = timed("anchor_p_s", enc.encode_frame_p, True)
+    enc._emit_b_frame = timed("b_emit_s", enc._emit_b_frame, False)
+    plan_minigop = timed("lookahead_s", la.plan_minigop, False)
+    t0 = time.perf_counter()
+    r0 = enc.encode_frame(*frames[0], qp=cfg.qp - 3)
+    sync()
+    i_s = time.perf_counter() - t0
+    enc.ref = r0.device_ref
+    enc.poc = 0
+    results, lengths, buf = [r0], [], []
+    anchor_y = frames[0][0]
+    t0 = time.perf_counter()
+
+    def flush(count):
+        nonlocal buf, anchor_y
+        chunk = buf[:count]
+        results.extend(enc.encode_minigop(chunk, qp=cfg.qp))
+        lengths.append(len(chunk))
+        anchor_y = chunk[-1][0]
+        buf = buf[count:]
+
+    for fr in frames[1:]:
+        buf.append(fr)
+        if len(buf) >= cfg.bframes + 1:
+            nb = plan_minigop(anchor_y, [f[0] for f in buf]) \
+                if cfg.b_adapt else len(buf) - 1
+            flush(nb + 1)
+    if buf:
+        flush(len(buf))
+    sync()
+    if timing is not None:
+        rest = time.perf_counter() - t0
+        timing.update(i_frame_s=i_s, **secs, b_frames_s=rest -
+                      secs["anchor_p_s"] - secs["lookahead_s"])
+    return results, lengths
+
+
+def b_stats(res) -> dict:
+    """Over the B frames of one encode: the shares of 8x8 cells
+    predicted from L0 only, L1 only and both."""
+    pf = np.concatenate([r.syntax.pf8.ravel() for r in res
+                         if r.ftype == "B"])
+    return {"pf8_share": {k: float((pf == v).mean())
+                          for k, v in (("l0", 1), ("l1", 2), ("bi", 3))}}
 
 
 def cuda_time(fn, iters=30) -> float:
@@ -661,6 +787,138 @@ def phase_card_equals_cpu():
     return out
 
 
+def phase_b_card_equals_cpu():
+    """The B path's card == CPU legs; returns the 1080p leg's card
+    results up to its first mini-GOP."""
+    out = None
+    for tag, frames in (("fast 64x96 1I+8 B loop", b_clip(9)),
+                        ("fast 1080x1920 I+minigop", full_size_clip(5))):
+        h, w = frames[0][0].shape
+        t0 = time.perf_counter()
+        gpu, lengths = encode_random_access(frames, "cuda",
+                                            fast_b_config(h, w))
+        t1 = time.perf_counter()
+        cpu, lengths_cpu = encode_random_access(frames, "cpu",
+                                                fast_b_config(h, w))
+        t2 = time.perf_counter()
+        if lengths != lengths_cpu or len(gpu) != len(cpu) or any(
+                a.bitstream != b.bitstream for a, b in zip(gpu, cpu)):
+            raise AssertionError(f"card != CPU at {tag}")
+        rec = {"card_equals_cpu": tag, "frames": len(gpu),
+               "minigop_lengths": lengths,
+               "bytes": sum(len(r.bitstream) for r in gpu),
+               "card_s": t1 - t0, "cpu_s": t2 - t1, **b_stats(gpu)}
+        print(json.dumps(rec), flush=True)
+        if "64x96" in tag:
+            if len(lengths) < 2 or not all(rec["pf8_share"][k] > 0
+                                           for k in ("l1", "bi")):
+                raise AssertionError(f"{tag}: want two mini-GOPs with "
+                                     f"L1-only and bi-predicted cells, got "
+                                     f"{lengths} {rec['pf8_share']}")
+        else:
+            out = gpu[:1 + lengths[0]]
+    return out
+
+
+def phase_b_path(first_frames):
+    """The fast path with B frames at full size: the bench clip, one
+    warm-up pass, then a timed pass with every launch count set to 0
+    just before it and read just after. Returns the launches."""
+    from x265_tpu_torch.ops.me_win import gather_windows, \
+        int_search_pair_windows, int_search_windows
+    frames = [synth_1080p(i % 3, shift=2 * i) for i in range(GOP)]
+    cfg = fast_b_config(1080, 1920)
+    t0 = time.perf_counter()
+    warm, _ = encode_random_access(frames, "cuda", cfg)
+    warm_s = time.perf_counter() - t0
+    counted = (gather_windows, int_search_pair_windows, int_search_windows)
+    for fn in counted:
+        fn.launches = 0
+    split = {}
+    t0 = time.perf_counter()
+    res, lengths = encode_random_access(frames, "cuda", cfg, timing=split)
+    wall = time.perf_counter() - t0
+    launches = {"gather_windows": gather_windows.launches,
+                "int_search": int_search_pair_windows.launches +
+                int_search_windows.launches}
+    n_p = sum(r.ftype == "P" for r in res)
+    n_b = sum(r.ftype == "B" for r in res)
+    want = {"gather_windows": 4 * n_p + 8 * n_b,
+            "int_search": 2 * n_p + 4 * n_b}
+    if launches != want or int_search_pair_windows.launches != n_p + 2 * n_b:
+        raise AssertionError(f"fast_b: launches {launches}, want {want} "
+                             f"({n_p} anchor P, {n_b} B)")
+    if len(res) != GOP or n_b == 0 or any(len(r.bitstream) == 0
+                                          for r in res):
+        raise AssertionError("fast_b produced missing frames or no B frame")
+    if any(a.bitstream != b.bitstream for a, b in zip(res, warm)):
+        raise AssertionError("fast_b: two passes over one clip differ")
+    if [r.bitstream for r in res[:len(first_frames)]] != \
+            [r.bitstream for r in first_frames]:
+        raise AssertionError("fast_b: the clip's first frames differ from "
+                             "its card-vs-CPU leg")
+    print(json.dumps({
+        "path": "fast_b", "clip": "1080p random access CQP32 1I+24 "
+        "(CLI B loop, b-adapt)", "frames": len(res),
+        "bytes": sum(len(r.bitstream) for r in res),
+        "i_frame_bytes": len(res[0].bitstream), "minigop_lengths": lengths,
+        "anchor_p": n_p, "b_frames": n_b, "warmup_s": warm_s,
+        "wall_s": wall, "fps": GOP / wall, **split,
+        "anchor_p_frame_s": split["anchor_p_s"] / n_p,
+        "b_frame_s": split["b_frames_s"] / n_b,
+        "b_emit_frame_s": split["b_emit_s"] / n_b, "launches": launches,
+        **b_stats(res)}), flush=True)
+    return launches, frames
+
+
+def phase_b_profile(frames):
+    """torch.profiler over one mini-GOP of 4 (anchor P + 3 B) after the
+    I frame, as phase_profile does for a P chunk."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from x265_tpu_torch.enc import IntraEncoder
+    enc = IntraEncoder(fast_b_config(1080, 1920), device="cuda")
+    r0 = enc.encode_frame(*frames[0], qp=QP - 3, need_recon=False)
+    enc.ref = r0.device_ref
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        enc.encode_minigop(frames[1:5])
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def self_dev_us(e):
+        v = getattr(e, "self_device_time_total", None)
+        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
+
+    ev = prof.key_averages()
+    kernels = sorted((e for e in ev if self_dev_us(e) > 0),
+                     key=self_dev_us, reverse=True)
+    busy_ms = sum(self_dev_us(e) for e in kernels
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    print(json.dumps({"profile": "one fast_b mini-GOP (P + 3 B) at 1080p",
+                      "wall_ms_profiled": wall_ms,
+                      "device_busy_ms": busy_ms,
+                      "device_busy_share": busy_ms / wall_ms}), flush=True)
+    for e in kernels[:10]:
+        print(json.dumps({"path": "fast_b", "top_device_op": e.key[:120],
+                          "self_device_ms": self_dev_us(e) / 1e3,
+                          "calls": e.count}), flush=True)
+    for e in ev:
+        if "gather_windows_kernel" in e.key or "int_search_kernel" in e.key:
+            print(json.dumps({"path": "fast_b", "watched_device_op":
+                              e.key[:120],
+                              "self_device_ms": self_dev_us(e) / 1e3,
+                              "calls": e.count}), flush=True)
+    # the host side: the ten ops that take the most host time themselves
+    for e in sorted(ev, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:10]:
+        print(json.dumps({"path": "fast_b", "top_host_op": e.key[:120],
+                          "self_host_ms": e.self_cpu_time_total / 1e3,
+                          "calls": e.count}), flush=True)
+
+
 def phase_path(path: str, make_cfg, first_frames):
     """One path at full size: the bench clip, 1 I + 24 P in chunks of 8,
     one warm-up pass, then a timed pass with every launch count set to
@@ -785,7 +1043,8 @@ def main() -> int:
     phase_int_rates()
     gather = {"bench": phase_gather(SHAPES),
               "fast": phase_gather(FAST_SHAPES, (torch.uint8,)),
-              "medium": phase_gather(MEDIUM_SHAPES, (torch.uint8,))}
+              "medium": phase_gather(MEDIUM_SHAPES, (torch.uint8,)),
+              "fast_b": phase_gather(FAST_B_SHAPES, (torch.uint8,))}
     search = phase_search()
     log("kernel == plain at every main-path shape")
     legs = phase_card_equals_cpu()
@@ -801,8 +1060,15 @@ def main() -> int:
         launches[path], frames = phase_path(path, make_cfg, first)
         log(f"{path} path ran, launches {launches[path]}")
         phase_profile(frames, make_cfg(1080, 1920), path)
+    first = phase_b_card_equals_cpu()
+    log("B path: card == CPU")
+    launches["fast_b"], frames = phase_b_path(first)
+    log(f"fast_b path ran, launches {launches['fast_b']}")
+    phase_b_profile(frames)
 
     # per path, each kernel's per-P-frame numbers at that path's shapes
+    # (the B path's searches have the fast path's shapes: side 11)
+    search["fast_b"] = search["fast"]
     print(json.dumps({"kernels_per_path": {
         path: {"gather_windows": {**{k: gather[path][k] for k in
                                      ("ms", "plain_ms", "library_ms",
@@ -813,8 +1079,8 @@ def main() -> int:
                                  ("ms", "plain_ms", "bound_ms", "bound_by")},
                               "launches": launches[path]["int_search"]}}
         for path in launches}}), flush=True)
-    # launches: summed over the paths' timed passes; the times and the
-    # bound: per P frame at the bench path's shapes (ms_of)
+    # launches: summed over the four paths' timed passes; the times and
+    # the bound: per P frame at the bench path's shapes (ms_of)
     total = {k: sum(n[k] for n in launches.values())
              for k in ("gather_windows", "int_search")}
     by_path = {k: {path: launches[path][k] for path in launches}

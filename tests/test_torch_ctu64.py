@@ -43,6 +43,7 @@ from x265_tpu_torch.enc import pgop_gpu as port_pgop
 from x265_tpu_torch.ops import deblock as port_db
 from x265_tpu_torch.ops import sao_gpu as port_sao
 from chip_smoke import medium_clip
+from test_torch_fma import assert_same_bits, float_comparison_operands
 
 torch.set_num_threads(2)
 
@@ -145,40 +146,69 @@ def _recon_inputs(nrefs, seed):
 
 
 @pytest.mark.parametrize("nrefs", (1, 3))
-def test_cu64_candidate_and_depth_decision_match_reference(nrefs):
+def test_cu64_candidate_and_depth_decision_match_reference(nrefs,
+                                                           monkeypatch):
     """_mc_recon_all at CTU 64 (RQT, psy-rd, the intra 8x8 candidate):
     the depth-0 synthesis (sse[64] / bits[64] from the 32 level, the
     1e18 mask of ineligible CUs, one MVD and one ref_idx), the 64-level
     RD decision, tusplit8 one level deeper and the depth-to-plane map,
     every output against the reference's on the same inputs, with 1
-    and 3 references. The 8x8 inter leaf cost it also returns is not
-    compared: the reference's jitted multiply-adds round as fused
-    multiply-adds and the port's do not, 1-ulp differences in that cost
-    at CTU 32 as at 64 (ROADMAP queue 3); every decision and plane here
-    is compared."""
+    and 3 references. The float32 cost planes bit for bit: the
+    psy-adjusted SSE and the bits each size enters the decision with,
+    the 8x8 inter leaf cost, and both operands of every comparison the
+    reference's program makes (the TU-split tests at 16 and 32, the
+    intra-vs-inter test, the keep-vs-split tests at 16, 32 and 64),
+    which need its multiply-adds rounded once (tests/test_torch_fma.py)."""
     oy, oc, preds, cpreds, mvs, refs, alt8 = _recon_inputs(nrefs, 30 + nrefs)
     qp = 32
     kw = dict(lam2=float(lambda2_from_qp(qp)), qp=qp, qpc=chroma_qp(qp),
               bit_depth=8, sign_hiding=True, real_h=H, real_w=W, ctu=64,
               psy_rd=2.0, rqt=True, nrefs=nrefs)
     j = jnp.asarray
-    want, _ = jax.jit(functools.partial(ref_pgop._mc_recon_all, **kw))(
-        j(oy), j(oc[0]), j(oc[1]), {n: j(v) for n, v in mvs.items()},
-        preds={n: j(v) for n, v in preds.items()},
-        cpreds={n: (j(a), j(b)) for n, (a, b) in cpreds.items()},
-        refs_grid={n: j(v) for n, v in refs.items()}, alt8_cost=j(alt8))
+    rd_decision = ref_pgop._rd_depth_decision
+
+    def ref_fn(oy, ocb, ocr, mvs, preds, cpreds, refs, alt8):
+        seen = {}
+
+        def spy(sse, bits, *a, **k):
+            seen.update(sse=dict(sse), bits=dict(bits))
+            return rd_decision(sse, bits, *a, **k)
+
+        monkeypatch.setattr(ref_pgop, "_rd_depth_decision", spy)
+        out = ref_pgop._mc_recon_all(oy, ocb, ocr, mvs, preds=preds,
+                                     cpreds=cpreds, refs_grid=refs,
+                                     alt8_cost=alt8, **kw)[0]
+        monkeypatch.setattr(ref_pgop, "_rd_depth_decision", rd_decision)
+        return out, seen["sse"], seen["bits"]
+
+    (want, w_sse, w_bits), cmp = float_comparison_operands(
+        ref_fn, j(oy), j(oc[0]), j(oc[1]), {n: j(v) for n, v in mvs.items()},
+        {n: j(v) for n, v in preds.items()},
+        {n: (j(a), j(b)) for n, (a, b) in cpreds.items()},
+        {n: j(v) for n, v in refs.items()}, j(alt8))
     t = torch.from_numpy
+    costs = {}
     got = port_pgop._mc_recon_all(
         t(oy), t(oc[0]), t(oc[1]), {n: t(v) for n, v in mvs.items()},
         preds={n: t(v) for n, v in preds.items()},
         cpreds={n: (t(a), t(b)) for n, (a, b) in cpreds.items()},
         refs_grid={n: t(v) for n, v in refs.items()}, alt8_cost=t(alt8),
-        **kw)
+        costs=costs, **kw)
     names = ("rec_y", "cf_y", "rec_cb", "cf_cb", "rec_cr", "cf_cr", "depth8",
              "mv8", "tusplit8", "ref8", "intra_pref")
     for name, a, b in zip(names, want, got):
         np.testing.assert_array_equal(np.asarray(a), b.numpy(),
                                       err_msg=name)
+    assert_same_bits(want[-1], got[-1].numpy(), "inter_c8")
+    for n in (8, 16, 32, 64):
+        assert_same_bits(w_sse[n], costs["sse"][n].numpy(), f"sse[{n}]")
+        assert_same_bits(w_bits[n], costs["bits"][n].numpy(), f"bits[{n}]")
+    order = ("split16", "split32", "intra8", "keep16", "keep32", "keep64")
+    assert len(cmp) == 2 * len(order)
+    for k, name in enumerate(order):
+        for side in (0, 1):
+            assert_same_bits(cmp[2 * k + side],
+                             costs[name][side].numpy(), f"{name}[{side}]")
     depth8 = got[6].numpy()
     assert (depth8[:8] == 0).any(), "no 64x64 CU kept"
     assert (depth8[:8] > 0).any() and (depth8[8:] > 1).all()
@@ -274,6 +304,34 @@ def test_deblock_and_sao_at_ctu64_on_a_ragged_size():
         np.testing.assert_array_equal(
             np.asarray(ref_sao.apply_sao_t(j(r), wp, 32, 8)),
             port_sao.apply_sao_t(t(r), gp, 32, 8).numpy())
+
+
+@pytest.mark.parametrize("ctu", (32, 64))
+def test_sao_costs_in_frame_bodies_match_reference(ctu):
+    """SAO's luma decision as the P and B frame bodies run it: the
+    reference's jitted choice prices every EO class and BO position as
+    dd + lambda * bits rounded once (fused=True in the port; the I frame,
+    which the reference runs op by op, keeps fused=False). Every
+    candidate's cost plane bit for bit, and the decisions."""
+    rng = np.random.default_rng(66 + ctu)
+    h, w = 128, 256
+    yy, xx = np.mgrid[0:h, 0:w]
+    orig = np.clip(((xx * 5 + yy * 3) % 180) + 40 +
+                   rng.integers(-8, 9, (h, w)), 0, 255).astype(np.int32)
+    rec = np.clip(orig + rng.integers(-6, 7, (h, w)) +
+                  np.where(xx % 3 == 0, 2, -1), 0, 255).astype(np.int32)
+    qp = 33
+    lam = float(lambda2_from_qp(qp))
+    want, cmp = float_comparison_operands(
+        lambda o, r: ref_sao.choose_sao_t(o, r, ctu, qp, 8, lam),
+        jnp.asarray(orig), jnp.asarray(rec))
+    costs = []
+    got = port_sao.choose_sao_t(torch.from_numpy(orig), torch.from_numpy(rec),
+                                ctu, qp, 8, lam, fused=True, costs=costs)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    assert len(cmp) == 2 * len(costs) == 2 * 36
+    for k, c in enumerate(costs):
+        assert_same_bits(cmp[2 * k], c.numpy(), f"candidate {k}")
 
 
 # ---------------------------------------------------------------------------

@@ -73,14 +73,18 @@ def test_ippp_stream_matches_reference(h, w):
 
 
 def test_package_imports_neither_jax_nor_reference():
-    """Every module of x265_tpu_torch, and chip_smoke.py, import without
-    pulling JAX or the reference package into the process."""
+    """Every module of x265_tpu_torch (the B path's enc/bframe_gpu.py and
+    enc/lookahead.py, ops/fma.py among them), and chip_smoke.py, import
+    without pulling JAX or the reference package into the process."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import x265_tpu_torch\n"
-        "for m in pkgutil.walk_packages(x265_tpu_torch.__path__, "
-        "'x265_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "x265_tpu_torch.__path__, 'x265_tpu_torch.')]\n"
+        "for n in ('enc.bframe_gpu', 'enc.lookahead', 'ops.fma'):\n"
+        "    assert 'x265_tpu_torch.' + n in names, n\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'x265_tpu' or m.startswith('x265_tpu.')]\n"
@@ -111,10 +115,11 @@ def test_entry_points_want_a_gpu():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("num_refs", 2), ("tmvp", True), ("sao", True), ("ctu_size", 64)])
+    ("num_refs", 2), ("tmvp", True), ("sao", True), ("ctu_size", 64),
+    ("bframes", 3)])
 def test_ported_options_construct(field, value):
-    """Multi-reference prediction, TMVP, SAO and CTU 64 are ported: the
-    encoder and the P-chunk path take them."""
+    """Multi-reference prediction, TMVP, SAO, CTU 64 and B frames (at
+    CTU 32) are ported: the encoder and the P-chunk path take them."""
     from x265_tpu_torch.enc.pgop_gpu import check_pgop_config
     cfg = EncoderConfig(width=64, height=64, qp=32)
     setattr(cfg, field, value)
@@ -125,8 +130,7 @@ def test_ported_options_construct(field, value):
 @pytest.mark.parametrize("field,value,item", [
     ("aq_mode", 2, 15), ("rdoq", True, 16),
     ("nr_inter", 100, 16), ("lowpass_dct", True, 16), ("wpp", True, 17),
-    ("lossless", True, 18), ("bit_depth", 10, 19), ("bframes", 3, 21),
-    ("hash_sei", 1, 24)])
+    ("lossless", True, 18), ("bit_depth", 10, 19), ("hash_sei", 1, 24)])
 def test_unported_options_raise(field, value, item):
     cfg = EncoderConfig(width=64, height=64, qp=32)
     setattr(cfg, field, value)
@@ -147,6 +151,33 @@ def test_ctu16_raises_naming_the_host_recon_i_path():
     with pytest.raises(NotImplementedError, match="all-intra only"):
         IntraEncoder(EncoderConfig(width=64, height=64, qp=32, ctu_size=16),
                      device="cpu")
+
+
+def test_b_frames_at_ctu64_and_the_host_b_path_raise():
+    """B frames at CTU 64 (--preset medium without a tune) wait for a
+    reference whose CTU-64 B streams decode; the host B path
+    (encode_minigop(device=False), encode_frame_b, encode_bgop) is not
+    ported. Each raises naming its ROADMAP item."""
+    from x265_tpu_torch.enc.bframe_gpu import encode_bframes_gpu
+    cfg = EncoderConfig(width=64, height=64, qp=32)
+    cfg.apply_preset("medium")
+    assert (cfg.ctu_size, cfg.bframes) == (64, 4)
+    with pytest.raises(NotImplementedError,
+                       match="B frames at CTU 64.*ROADMAP queue 1 item 28"):
+        IntraEncoder(cfg, device="cpu")
+    cfg.bframes = 0
+    with pytest.raises(NotImplementedError, match="item 28"):
+        encode_bframes_gpu([], [], [], cfg, 33, device="cpu")
+    enc = IntraEncoder(EncoderConfig(width=64, height=64, qp=32, bframes=3),
+                       device="cpu")
+    z = np.zeros((64, 64), np.uint8)
+    zc = np.zeros((32, 32), np.uint8)
+    for call in (lambda: enc.encode_minigop([(z, zc, zc)] * 2, device=False),
+                 lambda: enc.encode_frame_b(z, zc, zc, None, None, 1, (0, 2)),
+                 lambda: enc.encode_bgop([(z, zc, zc)] * 3)):
+        with pytest.raises(NotImplementedError,
+                           match="host B path.*ROADMAP queue 1 item 29"):
+            call()
 
 
 def test_host_recon_i_path_raises():

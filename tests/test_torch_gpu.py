@@ -2,8 +2,10 @@
 search) against their plain PyTorch versions on a CUDA card, at the
 bench path's shapes and at the fast/zerolatency and medium/zerolatency
 paths' (stacked references, sides 11 and 21, a composed search
-current), and the card's stream against the CPU's at an odd me_range
-and in the fast/zerolatency and medium/zerolatency configurations.
+current) and the B path's (one reference per plane), and the card's
+stream against the CPU's at an odd me_range, in the fast/zerolatency
+and medium/zerolatency configurations and with B frames (--preset
+fast).
 This file imports neither JAX nor the reference package, so it runs on
 a machine with a GPU and no JAX:
 
@@ -16,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import medium_clip
+from chip_smoke import b_clip, encode_random_access, fast_b_config, \
+    medium_clip
 from x265_tpu_torch.ops import me_win as port
 
 # the main path's four window sizes at me_range 10: luma 16-region and
@@ -224,17 +227,18 @@ def test_int_search_unaligned_windows_on_gpu():
             assert torch.equal(got[1], want[1]), (shift, odd)
 
 
-def _check_stacked_gather(me_range, seed):
-    """The gather on a 3-reference stacked uint8 plane at a path's 1080p
-    shapes at me_range r (luma references (3 x (1088 + 2r + 8), 1920 +
-    2r + 8), windows 16 + 2r + 8 and 32 + 2r + 8; chroma cb/cr rows 2 x
-    3 x (544 + r + 8) of 960 + r + 8, windows r + 12 and r + 20): luma
+def _check_stacked_gather(me_range, seed, nr=3):
+    """The gather on an nr-reference stacked uint8 plane at a path's
+    1080p shapes at me_range r (luma references (nr x (1088 + 2r + 8),
+    1920 + 2r + 8), windows 16 + 2r + 8 and 32 + 2r + 8; chroma cb/cr
+    rows 2 x nr x (544 + r + 8) of 960 + r + 8, windows r + 12 and
+    r + 20): luma
     windows starting in every reference's segment, and the chroma
     windows through gather_chroma_windows with per-region reference rows
     (its starts clamp over the whole stacked component), against the
     plain version (the same call on CPU tensors)."""
     rng = np.random.default_rng(seed)
-    nr, h, w, pad = 3, 1088, 1920, 2 * me_range + 8
+    h, w, pad = 1088, 1920, 2 * me_range + 8
     seg = h + 2 * pad
     plane = torch.from_numpy(rng.integers(0, 256, (nr * seg, w + 2 * pad))
                              .astype(np.uint8)).cuda()
@@ -282,6 +286,17 @@ def test_gather_kernel_on_stacked_references_on_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
     _check_stacked_gather(5, seed=4)
+
+
+@pytest.mark.gpu
+def test_gather_and_search_at_the_b_paths_shapes_on_gpu():
+    """The B path's shapes (--preset fast: me_range 5, one reference per
+    list in its own plane): the gather of luma windows 34 and 50 and
+    chroma 17 and 25, and the search at side 11."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    _check_stacked_gather(5, seed=6, nr=1)
+    _check_composed_search(11, seed=33)
 
 
 @pytest.mark.gpu
@@ -424,6 +439,30 @@ def test_card_stream_equals_cpu_medium_zerolatency():
     assert [r.bitstream for r in card] == [r.bitstream for r in cpu]
     assert any((r.syntax.depth8 == 0).any() for r in card[1:])
     assert any(r.syntax.ref8 is not None for r in card[1:])
+
+
+@pytest.mark.gpu
+def test_card_stream_equals_cpu_fast_b_frames():
+    """--preset fast with B frames (CTU 32, 3 B frames with b-adapt, 3
+    references, SAO) on the 64x96 B clip of tests/test_torch_bframes.py,
+    1 I + 8 frames through the CLI's mini-GOP loop: the same bytes and
+    mini-GOPs on the card as on the CPU, with L1-only and bi-predicted
+    cells."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    frames = b_clip(9)
+    cfg = fast_b_config(64, 96)
+    before = port.int_search_pair_windows.launches
+    card, lengths = encode_random_access(frames, "cuda", cfg)
+    n_p = sum(r.ftype == "P" for r in card)
+    n_b = sum(r.ftype == "B" for r in card)
+    assert port.int_search_pair_windows.launches == before + n_p + 2 * n_b
+    cpu, lengths_cpu = encode_random_access(frames, "cpu", cfg)
+    assert lengths == lengths_cpu and n_b > 0
+    assert [r.bitstream for r in card] == [r.bitstream for r in cpu]
+    pf = np.concatenate([r.syntax.pf8.ravel() for r in card
+                         if r.ftype == "B"])
+    assert (pf == 2).any() and (pf == 3).any()
 
 
 def test_search_cpu_tensors_take_the_plain_version():

@@ -28,6 +28,22 @@ class FrameIntraSyntax:
 
 
 @dataclass
+class FrameBSyntax:
+    """B-frame decisions: inter 2Nx2N CUs, L0 + L1 (one reference
+    each)."""
+    depth8: np.ndarray     # (n8y, n8x) uint8
+    mv8: np.ndarray        # (n8y, n8x, 2, 2) int32 qpel MV per list
+    pf8: np.ndarray        # (n8y, n8x) uint8 pred flags (1 L0, 2 L1, 3 bi)
+    coeff_y: np.ndarray
+    coeff_cb: np.ndarray
+    coeff_cr: np.ndarray
+    poc: int = 0
+    poc_refs: tuple = (0, 0)   # (L0 ref POC, L1 ref POC)
+    max_merge: int = 2
+    sao_params: tuple | None = None   # (p_y, p_cb, p_cr) per-CTU params
+
+
+@dataclass
 class FramePSyntax:
     """P-frame decisions: inter 2Nx2N CUs (multi-reference L0) plus
     optional 8x8 intra CUs (checkIntraInInter analog)."""

@@ -1,21 +1,24 @@
 """Top-level encoder orchestration for the GPU port (the x265
 Encoder::encode analog).
 
-Counterpart of the IPPP path of x265_tpu/enc/encoder.py: an I frame
-through device analysis + the wavefront recon + deblock + SAO, then P
-chunks through enc/pgop_gpu.py (one or several references, TMVP, SAO),
+Counterpart of the device paths of x265_tpu/enc/encoder.py: an I frame
+through device analysis + the wavefront recon + deblock + SAO (or F of
+them through one batched wavefront, encode_gop), P chunks through
+enc/pgop_gpu.py (one or several references, TMVP, SAO), and
+hierarchical mini-GOPs whose B layers run through enc/bframe_gpu.py;
 every frame entropy-coded by the native CABAC and packed into Annex-B
-NAL units. The reference picture (or the stack of the R most recent
-ones) stays on the device between frames (DeviceRef); the host keeps
-the DPB bookkeeping (references available since the IDR, their POCs)
-and the collocated picture for TMVP. Options this package does not
-implement raise NotImplementedError naming their ROADMAP queue item;
-nothing falls back to a reduced mode.
+NAL units. Reference pictures stay on the device between frames
+(DeviceRef); the host keeps the DPB bookkeeping (references available
+since the IDR, their POCs, the mini-GOP's retention RPS), the
+collocated picture for TMVP and the encode statistics. Options this
+package does not implement raise NotImplementedError naming their
+ROADMAP queue item; nothing falls back to a reduced mode.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -24,8 +27,8 @@ from ..bitstream.ctx_tables import init_states
 from ..bitstream.headers import (write_pps, write_slice_header, write_sps,
                                  write_vps)
 from ..bitstream.nal import NalUnitType, annexb_stream
-from ..bitstream.syntax import FrameIntraSyntax
-from ..common.params import EncoderConfig, I_SLICE, P_SLICE
+from ..bitstream.syntax import FrameIntraSyntax, FramePSyntax
+from ..common.params import B_SLICE, EncoderConfig, I_SLICE, P_SLICE
 from ..common.tables import lambda2_from_qp
 from ..device import resolve_device
 from ..native.entropy_native import encode_slice_native
@@ -36,6 +39,10 @@ from .intra_recon import DeviceRef, ReconFrame
 from .intra_recon_gpu import reconstruct_intra_gop_gpu
 from .pgop_gpu import check_pgop_config, collect_pgop_gpu, submit_pgop_gpu
 
+HOST_B_PATH = ("the host B path (enc/bi_frame.py, encode_frame_b, "
+               "encode_bgop, encode_minigop(device=False)): not ported yet "
+               "(ROADMAP queue 1 item 29)")
+
 
 def pad_plane(p: np.ndarray, h: int, w: int) -> np.ndarray:
     """Edge-replicate to the coded (padded) size."""
@@ -43,6 +50,63 @@ def pad_plane(p: np.ndarray, h: int, w: int) -> np.ndarray:
     if ph == 0 and pw == 0:
         return p
     return np.pad(p, ((0, ph), (0, pw)), mode="edge")
+
+
+@dataclass
+class FrameStats:
+    """Per-frame statistics record (the x265_frame_stats analog): coding
+    results and encode-latency telemetry."""
+    poc: int = 0
+    ftype: str = "I"
+    qp: int = 0
+    bits: int = 0
+    wall_time: float = 0.0        # seconds spent producing this frame
+    cu_pct_by_depth: tuple = ()   # % of picture area per CU depth
+    skip_pct: float = 0.0
+
+
+@dataclass
+class EncoderStats:
+    """Global encode statistics (the x265_stats analog)."""
+    frame_count: int = 0
+    total_bits: int = 0
+    qp_sum: int = 0
+    count_by_type: dict = field(default_factory=lambda: {"I": 0, "P": 0,
+                                                         "B": 0})
+    bits_by_type: dict = field(default_factory=lambda: {"I": 0, "P": 0,
+                                                        "B": 0})
+    total_wall: float = 0.0
+    frames: list = field(default_factory=list)   # FrameStats records
+
+    def add(self, ftype: str, bits: int, qp: int, *, poc: int = 0,
+            wall_time: float = 0.0, syn=None) -> None:
+        self.frame_count += 1
+        self.total_bits += bits
+        self.qp_sum += qp
+        self.count_by_type[ftype] += 1
+        self.bits_by_type[ftype] += bits
+        self.total_wall += wall_time
+        fs = FrameStats(poc=poc, ftype=ftype, qp=qp, bits=bits,
+                        wall_time=wall_time)
+        if syn is not None and getattr(syn, "depth8", None) is not None:
+            d8 = np.asarray(syn.depth8)
+            tot = max(d8.size, 1)
+            fs.cu_pct_by_depth = tuple(
+                round(float((d8 == d).sum()) * 100.0 / tot, 2)
+                for d in range(3))
+        self.frames.append(fs)
+
+    def summary(self, fps: float = 25.0) -> dict:
+        n = max(self.frame_count, 1)
+        return {
+            "frames": self.frame_count,
+            "kbps": self.total_bits * fps / n / 1000.0,
+            "avg_qp": self.qp_sum / n,
+            "count_by_type": dict(self.count_by_type),
+            "bits_by_type": dict(self.bits_by_type),
+            "encode_fps": (self.frame_count / self.total_wall
+                           if self.total_wall > 0 else 0.0),
+        }
 
 
 @dataclass
@@ -57,8 +121,8 @@ class FrameResult:
 
 
 class IntraEncoder:
-    """Low-delay IPPP HEVC encoder, CQP, on one GPU (or the CPU when
-    device="cpu")."""
+    """HEVC encoder, CQP, on one GPU (or the CPU when device="cpu"):
+    low-delay IPPP, or hierarchical-B mini-GOPs at CTU 32."""
 
     def __init__(self, cfg: EncoderConfig, device=None) -> None:
         cfg.validate()
@@ -72,6 +136,46 @@ class IntraEncoder:
         self.poc = 0
         self.ref_avail = 1     # distinct pictures in the DPB since the IDR
         self._last_p_syn = None  # the previous P frame (TMVP collocated)
+        self.stats = EncoderStats()
+
+    def reconfigure(self, **updates) -> int:
+        """x265_encoder_reconfig analog: latch parameter changes for the
+        next frame; returns 0 on success, -1 if an update is not
+        reconfigurable. An update that turns on an option this package
+        does not implement is undone and raises NotImplementedError."""
+        old = {k: getattr(self.cfg, k) for k in updates
+               if hasattr(self.cfg, k)}
+        try:
+            self.cfg.reconfigure(**updates)
+        except (ValueError, NotImplementedError):
+            return -1
+        try:
+            check_pgop_config(self.cfg)
+        except NotImplementedError:
+            for k, v in old.items():
+                setattr(self.cfg, k, v)
+            raise
+        return 0
+
+    def get_stats(self) -> dict:
+        """Encode-session summary (x265_encoder_get_stats analog)."""
+        fps = self.cfg.fps_num / max(self.cfg.fps_den, 1)
+        return self.stats.summary(fps)
+
+    def _newest_ref(self) -> DeviceRef:
+        """self.ref's newest picture as a single-picture DeviceRef (slot
+        0 of a stack, a host ReconFrame uploaded once), which then
+        becomes self.ref: the reference's _host_ref, kept on the
+        device."""
+        ref = self.ref
+        if isinstance(ref, DeviceRef):
+            if ref.y.dim() == 3:
+                ref = DeviceRef(ref.y[0], ref.cb[0], ref.cr[0])
+        else:
+            ref = DeviceRef(*(self._upload(np.asarray(p))
+                              for p in (ref.y, ref.cb, ref.cr)))
+        self.ref = ref
+        return ref
 
     def headers(self) -> list[tuple[NalUnitType, bytes]]:
         cfg = self.cfg
@@ -91,6 +195,7 @@ class IntraEncoder:
         deblock, SAO; the post-filter recon is kept on the device
         (FrameResult.device_ref) and downloaded only on need_recon."""
         cfg = self.cfg
+        t_start = time.perf_counter()
         if not use_device_recon:
             raise NotImplementedError(
                 "host-recon I path: not ported yet (ROADMAP queue 1 item 18)")
@@ -158,6 +263,8 @@ class IntraEncoder:
         self.frame_count += 1
         self.ref_avail = 1           # the IDR resets the DPB
         self._last_p_syn = None
+        self.stats.add("I", len(stream) * 8, qp, poc=0, syn=syn,
+                       wall_time=time.perf_counter() - t_start)
         return FrameResult(bitstream=stream, recon=recon, syntax=syn,
                            bits=len(stream) * 8, poc=0, ftype="I",
                            device_ref=device_ref)
@@ -230,6 +337,7 @@ class IntraEncoder:
             stream = annexb_stream([(NalUnitType.TRAIL_R, sw.get_bytes(),
                                      b"")])
             self.frame_count += 1
+            self.stats.add("P", len(stream) * 8, qp, poc=self.poc, syn=syn)
             self._last_p_syn = syn     # TMVP collocated for the next P
             results.append(FrameResult(bitstream=stream, recon=recons[i],
                                        syntax=syn, bits=len(stream) * 8,
@@ -289,4 +397,216 @@ class IntraEncoder:
         if pend_emit is not None:
             results.extend(self._emit_p_frames(
                 *pend_emit[:2], qp, poc_step, weights_hdr=pend_emit[2]))
+        return results
+
+    def encode_frame_p(self, y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                       qp: int | None = None,
+                       poc_step: int = 1) -> FrameResult:
+        """One P frame against the current reference: a P chunk of
+        one."""
+        return self.encode_pgop([(y, cb, cr)], qp=qp, poc_step=poc_step)[0]
+
+    def encode_dup_frame(self, qp: int | None = None) -> FrameResult:
+        """A duplicate frame as an all-skip P picture (the CFR frame
+        duplication analog): every CTU a zero-MV skip CU, so the recon
+        equals the reference exactly. The duplicate restarts the
+        multi-reference chain from that one picture. Host only."""
+        cfg = self.cfg
+        qp = cfg.qp if qp is None else qp
+        assert self.ref is not None, "no reference to duplicate"
+        w, h = cfg.width_padded, cfg.height_padded
+        n8y, n8x = h // 8, w // 8
+        syn = FramePSyntax(
+            depth8=np.zeros((n8y, n8x), np.uint8),
+            mv8=np.zeros((n8y, n8x, 2), np.int32),
+            coeff_y=np.zeros((h, w), np.int32),
+            coeff_cb=np.zeros((h // 2, w // 2), np.int32),
+            coeff_cr=np.zeros((h // 2, w // 2), np.int32))
+        dup = self._newest_ref()
+        rs = self._emit_p_frames([syn], [dup.to_recon()], qp)
+        self.ref_avail = 1
+        return rs[0]
+
+    def encode_gop(self, frames, need_recon: bool = True
+                   ) -> list[FrameResult]:
+        """F I frames through one batched wavefront (device analysis of
+        all frames, then the recon), deblocked, then per-frame native
+        CABAC. As in the reference: every frame at cfg.qp, no SAO,
+        headers before the first frame of the stream only; the DPB is
+        left as it was."""
+        cfg = self.cfg
+        w, h = cfg.width_padded, cfg.height_padded
+        ys = self._upload(np.stack([pad_plane(np.asarray(f[0]), h, w)
+                                    for f in frames]))
+        cbs = self._upload(np.stack([pad_plane(np.asarray(f[1]), h // 2,
+                                               w // 2) for f in frames]))
+        crs = self._upload(np.stack([pad_plane(np.asarray(f[2]), h // 2,
+                                               w // 2) for f in frames]))
+        depth8, mode8, nxn8, mode4 = analyze_intra_gop(
+            ys, cfg.qp, cfg.ctu_size, cfg.bit_depth, intra_nxn=cfg.intra_nxn)
+        cmode8 = analyze_chroma_gop(cbs, crs, depth8, mode8, cfg.qp,
+                                    cfg.bit_depth)
+        d8, m8, c8, nx8, m4 = (t.cpu().numpy() for t in
+                               (depth8, mode8, cmode8, nxn8, mode4))
+        syns, (ry, rcb, rcr) = reconstruct_intra_gop_gpu(
+            ys, cbs, crs, d8, m8, cfg, cfg.qp, cmode8=c8, nxn8=nx8,
+            mode4=m4)
+        results = []
+        for f, syn in enumerate(syns):
+            planes = (ry[f], rcb[f], rcr[f])
+            if cfg.deblock:
+                planes = deblock_frame(*planes, depth8[f], cfg.ctu_size,
+                                       cfg.qp, cfg.bit_depth)
+            recon = ReconFrame(*(p.cpu().numpy().astype(np.int32)
+                                 for p in planes)) if need_recon else None
+            sw = write_slice_header(cfg, I_SLICE, idr=True)
+            payload, tail_val, tail_bits = encode_slice_native(
+                2, syn.depth8, syn.coeff_y, syn.coeff_cb, syn.coeff_cr,
+                w, h, cfg.log2_ctu, cfg.log2_min_cu,
+                init_states(I_SLICE, cfg.qp), mode8=syn.mode8,
+                sign_hiding=cfg.sign_hiding, cmode8=syn.cmode8,
+                nxn8=syn.nxn8, mode4=syn.mode4)
+            sw.write_bytes(payload)
+            if tail_bits:
+                sw.write(tail_val, tail_bits)
+            sw.align_one()
+            nals: list[tuple] = []
+            if self.frame_count == 0:
+                nals.extend(self.headers())
+            nals.append((NalUnitType.IDR_W_RADL, sw.get_bytes(), b""))
+            stream = annexb_stream(nals)
+            self.frame_count += 1
+            results.append(FrameResult(bitstream=stream, recon=recon,
+                                       syntax=syn, bits=len(stream) * 8))
+        return results
+
+    # ------------------------------------------------------------------
+    # hierarchical-B mini-GOPs
+    # ------------------------------------------------------------------
+
+    def _emit_b_frame(self, syn, recon, qp: int, poc: int, poc_refs,
+                      is_ref: bool, rps_neg, rps_pos) -> FrameResult:
+        """Slice header + native B CABAC + NAL packaging for one (already
+        reconstructed) B frame."""
+        cfg = self.cfg
+        sw = write_slice_header(
+            cfg, B_SLICE, idr=False, poc=poc, slice_qp=qp,
+            ref_delta_poc=poc - poc_refs[0],
+            ref_delta_poc_after=poc_refs[1] - poc, max_merge=syn.max_merge,
+            rps_neg=rps_neg, rps_pos=rps_pos)
+        mvb = syn.mv8.reshape(syn.mv8.shape[0], syn.mv8.shape[1], 4)
+        payload, tail_val, tail_bits = encode_slice_native(
+            0, syn.depth8, syn.coeff_y, syn.coeff_cb, syn.coeff_cr,
+            cfg.width_padded, cfg.height_padded, cfg.log2_ctu,
+            cfg.log2_min_cu, init_states(B_SLICE, qp), mvb=mvb, pf8=syn.pf8,
+            poc=poc, poc_refs=poc_refs, max_merge=syn.max_merge,
+            sign_hiding=cfg.sign_hiding, sao_params=syn.sao_params,
+            slice_qp=qp, rqt_inter=cfg.rqt_inter)
+        sw.write_bytes(payload)
+        if tail_bits:
+            sw.write(tail_val, tail_bits)
+        sw.align_one()
+        nal_type = NalUnitType.TRAIL_R if is_ref else NalUnitType.TRAIL_N
+        stream = annexb_stream([(nal_type, sw.get_bytes(), b"")])
+        self.frame_count += 1
+        self.stats.add("B", len(stream) * 8, qp, poc=poc, syn=syn)
+        return FrameResult(bitstream=stream, recon=recon, syntax=syn,
+                           bits=len(stream) * 8, poc=poc, ftype="B")
+
+    def encode_frame_b(self, *args, **kwargs):
+        raise NotImplementedError(HOST_B_PATH)
+
+    def encode_bgop(self, *args, **kwargs):
+        raise NotImplementedError(HOST_B_PATH)
+
+    def encode_minigop(self, frames, qp: int | None = None,
+                       device: bool = True) -> list[FrameResult]:
+        """One hierarchical mini-GOP against the current reference:
+        frames are the next len(frames) display pictures (self.poc + 1
+        .. self.poc + L). The anchor P (the last picture, poc_step L) is
+        coded first, then the recursive-bisection B frames, one device
+        batch per (pyramid layer, reference-ness) run; interior Bs are
+        reference BREFs. QP ladder: P qp, BREF qp + 1, B qp + 2, plus
+        layer - 1 below layer 1. Returns results in decode order and
+        leaves self.ref at the anchor's single picture (a run of one
+        leaves the P chunk's reference stack, as the reference does)."""
+        if not device:
+            raise NotImplementedError(HOST_B_PATH)
+        from .bframe_gpu import encode_bframes_gpu
+        cfg = self.cfg
+        qp = cfg.qp if qp is None else qp
+        L = len(frames)
+        base = self.poc
+        prev_ref = self._newest_ref()
+        rp = self.encode_frame_p(*frames[-1], qp=qp, poc_step=L)
+        results = [rp]
+        if L == 1:
+            return results          # self.ref: the P chunk's stack
+        anchor = DeviceRef(*(p[0] for p in (self.ref.y, self.ref.cb,
+                                            self.ref.cr)))
+        dpb = {base: prev_ref, base + L: anchor}
+
+        sched: list[tuple[int, int, int, bool, int]] = []
+
+        def bisect(lo: int, hi: int, layer: int) -> None:
+            if hi - lo < 2:
+                return
+            mid = (lo + hi) // 2
+            sched.append((mid, lo, hi, hi - lo > 2, layer))
+            bisect(lo, mid, layer + 1)
+            bisect(mid, hi, layer + 1)
+
+        bisect(base, base + L, 1)
+        # decode order = layer order (the refs of layer k are in layers < k)
+        order = sorted(sched, key=lambda e: (e[4], not e[3], e[0]))
+
+        def rps_of(idx, poc, lo, hi):
+            needed_later: set[int] = set()
+            for _, l2, h2, _, _ in order[idx + 1:]:
+                needed_later.update((l2, h2))
+            retained = (set(dpb.keys()) & needed_later) | {lo, hi}
+            return (sorted([(poc - p, p == lo) for p in retained if p < poc]),
+                    sorted([(p - poc, p == hi) for p in retained if p > poc]))
+
+        i = 0
+        while i < len(order):
+            # a run with the same (layer, is_ref) shares its QP
+            layer, is_ref = order[i][4], order[i][3]
+            j = i
+            while j < len(order) and order[j][4] == layer and \
+                    order[j][3] == is_ref:
+                j += 1
+            group = order[i:j]
+            bqp = min(qp + (1 if is_ref else 2) + max(layer - 1, 0), 51)
+            syns, recons, drefs = encode_bframes_gpu(
+                [frames[e[0] - base - 1] for e in group],
+                [dpb[e[1]] for e in group], [dpb[e[2]] for e in group],
+                cfg, bqp, device=self.device)
+            for k, (poc, lo, hi, iref, _) in enumerate(group):
+                rps_neg, rps_pos = rps_of(i + k, poc, lo, hi)
+                syn = syns[k]
+                syn.poc = poc
+                syn.poc_refs = (lo, hi)
+                results.append(self._emit_b_frame(
+                    syn, recons[k], bqp, poc, (lo, hi), iref, rps_neg,
+                    rps_pos))
+                if iref:
+                    dpb[poc] = drefs[k]
+            i = j
+        self.ref = anchor
+        self.poc = base + L
+        return results
+
+    def encode_hier_gop(self, frames, qp: int | None = None
+                        ) -> list[FrameResult]:
+        """Hierarchical-B GOP (the x265 B-pyramid / random-access
+        structure): an IDR at display 0 (QP qp - 3), then one mini-GOP
+        over the rest. Returns results in decode order."""
+        qp = self.cfg.qp if qp is None else qp
+        r0 = self.encode_frame(*frames[0], qp=max(qp - 3, 0))
+        self.ref = r0.device_ref
+        self.poc = 0
+        results = [r0]
+        if len(frames) > 1:
+            results.extend(self.encode_minigop(frames[1:], qp=qp))
         return results

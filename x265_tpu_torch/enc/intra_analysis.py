@@ -22,6 +22,7 @@ import torch
 
 from ..common.bit_calib import calib_for_qp
 from ..common.tables import lambda_from_qp, lambda2_from_qp
+from ..ops.fma import fma32
 from ..ops.intra import intra_pred_all_modes
 from ..ops.me import bitlen as _bitlen_f
 from ..ops.satd import sa8d_nxn_batch
@@ -153,13 +154,13 @@ def _rd_mode_size(plane: torch.Tensor, n: int, qp: int,
     a = torch.abs(lv)
     nnz = (a > 0).sum((1, 2)).to(torch.float32)
     slog = _bitlen_f(a).sum((1, 2)).to(torch.float32)
-    cbits = torch.where(nnz > 0, abc[0] * nnz + abc[1] * slog + abc[2],
+    cbits = torch.where(nnz > 0, fma32(abc[0] * nnz, abc[1], slog) + abc[2],
                         0.0)
     mbits = mode_bits[idx].reshape(-1)
     if n == 4:
         # four coherent 4x4 PUs mostly hit each other's MPMs
         mbits = mbits * 0.5
-    cost = (sse + lam2 * (cbits + mbits)).reshape(b, _RD_K)
+    cost = fma32(sse, lam2, cbits + mbits).reshape(b, _RD_K)
     k = torch.argmin(cost, dim=1)
     best_mode = torch.gather(idx, 1, k[:, None])[:, 0]
     return best_mode.to(torch.int32), torch.amin(cost, dim=1)
@@ -167,10 +168,14 @@ def _rd_mode_size(plane: torch.Tensor, n: int, qp: int,
 
 def _analyze_frame(plane: torch.Tensor, qp: int, lam_bits, lam_split,
                    lam_nxn, lam2, abc, mode_bits, *, h: int, w: int,
-                   bit_depth: int, intra_nxn: bool):
+                   bit_depth: int, intra_nxn: bool,
+                   costs: dict | None = None):
     """Mode + depth decision of one frame; plane (Hp, Wp) int32 padded
     to CTU multiples, (h, w) the 8-aligned coded size. Returns
-    depth8/mode8/nxn8 (Hp/8, Wp/8) and mode4 (Hp/4, Wp/4)."""
+    depth8/mode8/nxn8 (Hp/8, Wp/8) and mode4 (Hp/4, Wp/4). costs, when
+    given, receives the float32 planes each depth decision compares:
+    'nxn' (NxN cost, 8x8 cost), 'keep16' and 'keep32' (CU cost, split
+    cost)."""
     hp, wp = plane.shape
     dev = plane.device
     mode, cost = {}, {}
@@ -192,6 +197,8 @@ def _analyze_frame(plane: torch.Tensor, qp: int, lam_bits, lam_split,
         # PART_NxN alternative at min CU: four 4x4 PU/TUs
         cost_nxn = children_sum(cost[4]) + lam_nxn
         use_nxn = cost_nxn < cost[8]
+        if costs is not None:
+            costs["nxn"] = (cost_nxn, cost[8])
         eff8 = torch.where(use_nxn, cost_nxn, cost[8])
     else:
         use_nxn = torch.zeros_like(cost[8], dtype=torch.bool)
@@ -201,10 +208,14 @@ def _analyze_frame(plane: torch.Tensor, qp: int, lam_bits, lam_split,
     agg8 = torch.where(torch.isinf(eff8), 0.0, eff8)
     child16 = children_sum(agg8) + lam_split
     keep16 = cost[16] <= child16
+    if costs is not None:
+        costs["keep16"] = (cost[16], child16)
     agg16 = torch.where(keep16, cost[16], child16)
     agg16 = torch.where(torch.isinf(agg16), 0.0, agg16)
     child32 = children_sum(agg16) + lam_split
     keep32 = cost[32] <= child32
+    if costs is not None:
+        costs["keep32"] = (cost[32], child32)
 
     k32 = up(keep32, 4)
     k16 = up(keep16, 2)

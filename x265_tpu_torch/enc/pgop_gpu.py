@@ -36,6 +36,7 @@ from ..common.params import EncoderConfig
 from ..common.tables import chroma_qp, lambda_from_qp, lambda2_from_qp
 from ..device import resolve_device
 from ..ops.deblock import deblock_chroma_t, deblock_luma_t
+from ..ops.fma import fma32
 from ..ops.intra import intra_pred_all_modes, intra_pred_single_mode
 from ..ops.me import _downsample4, bitlen as _bitlen
 from ..ops.me_win import (_argmin_first, apply_weight_acc,
@@ -123,7 +124,7 @@ def _median3_mv(mv: torch.Tensor) -> torch.Tensor:
 def _chroma_preds_windowed(cpad2, pc, refcb, refcr, mvs, seeds, radius,
                            h, w, bit_depth, wvec=None,
                            weight_denom: int = 6, ref16=None, ref32=None,
-                           cstride: int = 0, zplanes=None):
+                           cstride: int = 0, zplanes=None, raw: bool = False):
     """cpad2: (2, Hc+2pc, Wc+2pc) stacked padded uint8 chroma refs, or
     with multi-reference prediction (2, R*(Hc+2pc), Wc+2pc) with
     cstride = Hc+2pc rows per reference and ref16/ref32 the per-region
@@ -134,8 +135,12 @@ def _chroma_preds_windowed(cpad2, pc, refcb, refcr, mvs, seeds, radius,
     planes) when given, else of refcb/refcr. wvec: explicit weights, cb
     from wvec[2:4], cr from wvec[4:6], on reference 0 only when
     multi-reference (the others take the neutral weight, which rounds
-    as the default path). Returns {n: (pred_cb, pred_cr) (B, cn, cn)}."""
+    as the default path). raw (the B path, unweighted only): the
+    pre-rounding accumulators, a zero-MV block's samples << (12 -
+    (bit_depth - 8)). Returns {n: (pred_cb, pred_cr) (B, cn, cn)}."""
     weighted = wvec is not None
+    assert not (weighted and raw), \
+        "raw accumulators are the unweighted contract (B path)"
     dev = refcb.device
     r = radius
 
@@ -199,7 +204,7 @@ def _chroma_preds_windowed(cpad2, pc, refcb, refcr, mvs, seeds, radius,
         offx = torch.clamp(rel_x + (mv[:, 0] >> 3) - 1 - s0xe, 0, nshift - 1)
         pcb, pcr = chroma_mc_from_windows(
             win_b, offy, offx, mv[:, 0] & 7, mv[:, 1] & 7, cn, nshift,
-            bit_depth, raw=weighted)
+            bit_depth, raw=raw or weighted)
         zsrc = (refcb, refcr) if zplanes is None else \
             zplanes[32 if n == 32 else 16]
         zcb = zero_blocks(zsrc[0], cn)
@@ -223,6 +228,9 @@ def _chroma_preds_windowed(cpad2, pc, refcb, refcr, mvs, seeds, radius,
             pcr = wsel(pcr, wvec[4], wvec[5])
             zcb = wsel_fp(zcb, wvec[2], wvec[3])
             zcr = wsel_fp(zcr, wvec[4], wvec[5])
+        if raw:
+            zcb = zcb << (12 - (bit_depth - 8))
+            zcr = zcr << (12 - (bit_depth - 8))
         zm = zero[:, None, None]
         out[n] = (torch.where(zm, zcb, pcb), torch.where(zm, zcr, pcr))
     return out
@@ -255,22 +263,33 @@ def _coeff_bits_est(cf: torch.Tensor, by: int, bx: int, k: int,
     a = torch.abs(cf[:by * k, :bx * k])
     nnz = (a > 0).reshape(by, k, bx, k).sum((1, 3)).to(F32)
     slog = _bitlen(a).reshape(by, k, bx, k).sum((1, 3)).to(F32)
-    return torch.where(nnz > 0, calib[0] * nnz + calib[1] * slog + calib[2],
-                       0.0)
+    return torch.where(nnz > 0, _calib_bits(nnz, slog, calib), 0.0)
+
+
+def _calib_bits(nnz, slog, calib):
+    """calib[0] * nnz + calib[1] * slog + calib[2], the second product
+    fused into the add as the reference's program rounds it."""
+    return fma32(calib[0] * nnz, calib[1], slog) + calib[2]
 
 
 def _rd_depth_decision(sse: dict, bits: dict, mvs: dict, lam2: float,
                        real_h: int, real_w: int, h: int, w: int,
-                       hdr_bits: float, split_bits: float, refs: dict,
-                       alt8_cost=None):
+                       hdr_bits: float, split_bits: float,
+                       refs: dict | None, alt8_cost=None,
+                       costs: dict | None = None):
     """Bottom-up split-vs-keep argmin over true RD costs. Returns depth8
-    (n8y, n8x), mv8 (n8y, n8x, 2), ref8 (n8y, n8x), intra_pref (n8y,
+    (n8y, n8x), mv8 (n8y, n8x, k) (the k MV components of mvs: 2, or
+    4 for a B frame's two lists), ref8 (n8y, n8x), intra_pref (n8y,
     n8x) and the 8x8 inter leaf cost. CUs over the coded edge are forced
-    to split. refs: per-size (by, bx) L0 refIdx grids. alt8_cost: RD
+    to split. refs: per-size (by, bx) L0 refIdx grids, None for all 0
+    (ref8 then 0 everywhere). alt8_cost: RD
     cost of the 8x8 INTRA candidate per min-cell; where it beats the
     inter leaf it replaces the 8-level cost. With a 64 level in sse
     (CTU 64) the depths count from the 64 CU: 0 where the 64 CU is
-    kept, the 32-level decision one level deeper elsewhere."""
+    kept, the 32-level decision one level deeper elsewhere. costs, when
+    given, receives the float32 planes each decision compares: 'intra8'
+    (alt8_cost, leaf cost), 'keep16' / 'keep32' / 'keep64' (leaf cost,
+    split cost)."""
     dev = sse[8].device
     big = 1e18
     has64 = 64 in sse
@@ -278,9 +297,13 @@ def _rd_depth_decision(sse: dict, bits: dict, mvs: dict, lam2: float,
     intra_pref = None
     for n in SIZES + ((64,) if has64 else ()):
         by, bx = h // n, w // n
-        c = sse[n] + lam2 * (bits[n] + hdr_bits)
+        c = fma32(sse[n], lam2, bits[n] + hdr_bits)
+        if n == 8:
+            inter_c8 = c
         if n == 8 and alt8_cost is not None:
             intra_pref = alt8_cost < c
+            if costs is not None:
+                costs["intra8"] = (alt8_cost, c)
             c = torch.minimum(c, alt8_cost)
         ys = torch.arange(by, device=dev)[:, None]
         xs = torch.arange(bx, device=dev)[None, :]
@@ -290,10 +313,14 @@ def _rd_depth_decision(sse: dict, bits: dict, mvs: dict, lam2: float,
     agg = torch.where(cost[8] >= big, 0.0, cost[8])
     ch16 = block_sum_seq(agg, h // 16, 2, w // 16) + split_cost
     keep16 = cost[16] <= ch16
+    if costs is not None:
+        costs["keep16"] = (cost[16], ch16)
     agg16 = torch.where(keep16, cost[16], ch16)
     agg16 = torch.where(agg16 >= big, 0.0, agg16)
     ch32 = block_sum_seq(agg16, h // 32, 2, w // 32) + split_cost
     keep32 = cost[32] <= ch32
+    if costs is not None:
+        costs["keep32"] = (cost[32], ch32)
 
     n8y, n8x = h // 8, w // 8
     k32 = _up(keep32, 4)[:n8y, :n8x]
@@ -303,12 +330,14 @@ def _rd_depth_decision(sse: dict, bits: dict, mvs: dict, lam2: float,
         depth8 = depth8 + 1
 
     def up_mv(n, k):
-        return _up(mvs[n].reshape(h // n, w // n, 2), k)[:n8y, :n8x]
+        return _up(mvs[n].reshape(h // n, w // n, -1), k)[:n8y, :n8x]
 
     mv8 = torch.where(k32[..., None], up_mv(32, 4),
                       torch.where(k16[..., None], up_mv(16, 2), up_mv(8, 1)))
 
     def up_ref(n, k):
+        if refs is None:
+            return torch.zeros((n8y, n8x), dtype=torch.int32, device=dev)
         return _up(refs[n].reshape(h // n, w // n), k)[:n8y, :n8x]
 
     ref8 = torch.where(k32, up_ref(32, 4),
@@ -317,13 +346,14 @@ def _rd_depth_decision(sse: dict, bits: dict, mvs: dict, lam2: float,
         agg32 = torch.where(keep32, cost[32], ch32)
         agg32 = torch.where(agg32 >= big, 0.0, agg32)
         ch64 = block_sum_seq(agg32, h // 64, 2, w // 64) + split_cost
+        if costs is not None:
+            costs["keep64"] = (cost[64], ch64)
         k64 = _up(cost[64] <= ch64, 8)[:n8y, :n8x]
         depth8 = torch.where(k64, 0, depth8)
         mv8 = torch.where(k64[..., None], up_mv(64, 8), mv8)
         ref8 = torch.where(k64, up_ref(64, 8), ref8)
     if intra_pref is None:
         intra_pref = torch.zeros((n8y, n8x), dtype=torch.bool, device=dev)
-    inter_c8 = sse[8] + lam2 * (bits[8] + hdr_bits)
     return depth8, mv8.to(torch.int32), ref8, intra_pref[:n8y, :n8x], \
         inter_c8
 
@@ -384,11 +414,11 @@ def _cu64_candidate(sse, bits, mvs, refs, tusplit, m_scale: float,
         elig &= ~tusplit[32].reshape(by64, 2, bx64, 2).any(3).any(1)
     sse[64] = block_sum_seq(sse[32], by64, 2, bx64) + \
         torch.where(elig, 0.0, _f32(1e18, mv32.device))
-    coeff32 = bits[32] - m_scale * _mvd_bits_est(mv32)
+    coeff32 = fma32(bits[32], -m_scale, _mvd_bits_est(mv32))
     if nrefs > 1:
         coeff32 = coeff32 - torch.clamp(r32 + 1, max=nrefs - 1).to(F32)
-    bits[64] = block_sum_seq(coeff32, by64, 2, bx64) + \
-        m_scale * _mvd_bits_est(mv_tl)
+    bits[64] = fma32(block_sum_seq(coeff32, by64, 2, bx64), m_scale,
+                     _mvd_bits_est(mv_tl))
     if nrefs > 1:
         bits[64] = bits[64] + torch.clamp(r_tl + 1, max=nrefs - 1).to(F32)
     mvs[64], refs[64] = mv_tl, r_tl
@@ -397,7 +427,7 @@ def _cu64_candidate(sse, bits, mvs, refs, tusplit, m_scale: float,
 def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
                   sign_hiding, real_h, real_w, preds, cpreds, refs_grid,
                   nrefs: int, psy_rd=0.0, rqt=False, alt8_cost=None,
-                  ctu: int = 32):
+                  ctu: int = 32, costs: dict | None = None):
     """MC + residual coding at EVERY CU size with that size's own MV
     field (predictions from the windowed ME), leaf-RDO depth decision
     from the true recon SSE + estimated bits, then compose by depth.
@@ -406,7 +436,11 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
     ref_idx bins enter the bits. At CTU 64 the depth-0 candidate is
     synthesised from the 32 level (_cu64_candidate) and its CUs reuse
     the 32-level planes. Returns (rec_y, cf_y, rec_cb, cf_cb, rec_cr,
-    cf_cr, depth8, mv8, tusplit8, ref8, intra_pref, inter_c8)."""
+    cf_cr, depth8, mv8, tusplit8, ref8, intra_pref, inter_c8). costs,
+    when given, receives the float32 planes each decision compares:
+    'split16' / 'split32' (TU-split cost, unsplit cost), 'sse' and
+    'bits' (the per-size inputs of the depth decision, psy included),
+    and those of _rd_depth_decision."""
     dev = oy.device
     calib = calib_for_qp(qp)
     cal3 = calib[:3]
@@ -452,8 +486,9 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
         sse[n] = _blk_sse(pl[0], oy, by, bx, n) + \
             _blk_sse(pl[2], ocb, by, bx, cn) + \
             _blk_sse(pl[4], ocr, by, bx, cn)
-        mvd = m_scale * _mvd_bits_est(grid)
-        bits[n] = mvd + _coeff_bits_est(pl[1], by, bx, n, cal3) + \
+        mvd = _mvd_bits_est(grid)
+        bits[n] = fma32(_coeff_bits_est(pl[1], by, bx, n, cal3), m_scale,
+                        mvd) + \
             _coeff_bits_est(pl[3], by, bx, cn, cal3) + \
             _coeff_bits_est(pl[5], by, bx, cn, cal3)
 
@@ -481,12 +516,17 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
             def up2(a):
                 return block_sum_seq(a, by, 2, bx)
 
-            bits_s = mvd + \
-                up2(_coeff_bits_est(pl_s[1], h // n2, w // n2, n2, cal3)) + \
+            bits_s = fma32(
+                up2(_coeff_bits_est(pl_s[1], h // n2, w // n2, n2, cal3)),
+                m_scale, mvd) + \
                 up2(_coeff_bits_est(pl_s[3], h // n2, w // n2, n4, cal3)) + \
                 up2(_coeff_bits_est(pl_s[5], h // n2, w // n2, n4, cal3)) + \
                 3.0
-            sp = (sse_s + lam2 * bits_s) < (sse[n] + lam2 * bits[n])
+            c_s = fma32(sse_s, lam2, bits_s)
+            c_n = fma32(sse[n], lam2, bits[n])
+            if costs is not None:
+                costs[f"split{n}"] = (c_s, c_n)
+            sp = c_s < c_n
             tusplit[n] = sp
             sse[n] = torch.where(sp, sse_s, sse[n])
             bits[n] = torch.where(sp, bits_s, bits[n])
@@ -510,16 +550,18 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
             de = torch.abs(e_src - _psy8_energy(planes[n][0]))
             k = n // 8
             psy_n = de.reshape(h // n, k, w // n, k).sum((1, 3))
-            sse[n] = sse[n] + scale * psy_n
+            sse[n] = fma32(sse[n], scale, psy_n)
 
     mvs, refs_grid = dict(mvs), dict(refs_grid)
     if ctu == 64:
         _cu64_candidate(sse, bits, mvs, refs_grid, tusplit, m_scale, nrefs,
                         h, w)
+    if costs is not None:
+        costs["sse"], costs["bits"] = dict(sse), dict(bits)
     depth8, mv8, ref8, intra_pref, inter_c8 = _rd_depth_decision(
         sse, bits, mvs, lam2, real_h, real_w, h, w,
         hdr_bits=float(calib[3]), split_bits=float(calib[4]),
-        refs=refs_grid, alt8_cost=alt8_cost)
+        refs=refs_grid, alt8_cost=alt8_cost, costs=costs)
 
     n8y, n8x = h // 8, w // 8
     dof = 1 if ctu == 64 else 0          # the depth of the 32 level
@@ -660,8 +702,7 @@ def _cbits_of(cf, calib):
     a = torch.abs(cf)
     nnz = (a > 0).sum((1, 2)).to(F32)
     slog = _bitlen(a).sum((1, 2)).to(F32)
-    return torch.where(nnz > 0, calib[0] * nnz + calib[1] * slog + calib[2],
-                       0.0)
+    return torch.where(nnz > 0, _calib_bits(nnz, slog, calib), 0.0)
 
 
 def _sse_blocks(rec, orig):
@@ -702,7 +743,8 @@ def _intra8_est(oy, ocb, ocr, lam, lam2, qp, qpc, ctu, real_h, real_w,
     sse = _sse_blocks(rec8, ob)
     if psy_rd > 0:
         scale = _f32(psy_rd, dev) * torch.sqrt(_f32(lam2, dev))
-        sse = sse + scale * torch.abs(_psy8_blocks(ob) - _psy8_blocks(rec8))
+        sse = fma32(sse, scale, torch.abs(_psy8_blocks(ob) -
+                                          _psy8_blocks(rec8)))
     bits = _cbits_of(cf8, calib) + mode_bits_f[mode.long()] + 4.0
 
     # chroma 4x4 at DM from orig refs
@@ -717,7 +759,7 @@ def _intra8_est(oy, ocb, ocr, lam, lam2, qp, qpc, ctu, real_h, real_w,
                                     sign_hiding, mode)
         sse = sse + _sse_blocks(crec, ocx)
         bits = bits + _cbits_of(ccf, calib)
-    return mode, (sse + lam2 * bits).reshape(by, bx)
+    return mode, fma32(sse, lam2, bits).reshape(by, bx)
 
 
 def _neighbours(a: torch.Tensor):
@@ -752,12 +794,13 @@ def _intra_in_inter(oy, ocb, ocr, rec_y, rec_cb, rec_cr, cf_y, cf_cb,
                     cf_cr, depth8, accept_pref, mode_est, qp, qpc, ctu,
                     real_h, real_w, bit_depth, sign_hiding, rounds=2,
                     lam2=None, inter_c8=None, calib=(1.4, 1.2, 5.0),
-                    psy_rd: float = 0.0):
+                    psy_rd: float = 0.0, costs: dict | None = None):
     """Code 8x8 intra CUs at the cells the RD depth decision chose for
     intra, in `rounds` parity-independent waves, each predicting from
     reconstruction that is final; each wave's blocks are kept only
     where their actual coded RD beats the inter content they replace.
-    Returns updated planes + (intra8, mode8)."""
+    costs, when given, receives each wave's intra cost plane under
+    'cost_a' (a list). Returns updated planes + (intra8, mode8)."""
     dev = oy.device
     h, w = rec_y.shape
     by, bx = h // 8, w // 8
@@ -807,15 +850,17 @@ def _intra_in_inter(oy, ocb, ocr, rec_y, rec_cb, rec_cr, cf_y, cf_cb,
             sse_a = _sse_blocks(rec8, ob)
             if psy_rd > 0:
                 scale = _f32(psy_rd, dev) * torch.sqrt(_f32(lam2, dev))
-                sse_a = sse_a + scale * torch.abs(_psy8_blocks(ob) -
-                                                  _psy8_blocks(rec8))
+                sse_a = fma32(sse_a, scale, torch.abs(_psy8_blocks(ob) -
+                                                      _psy8_blocks(rec8)))
             bits_a = mode_bits_f[mode_est.long()] + 4.0
             bits_a = bits_a + _cbits_of(cf8, calib)
             for crec_w, ccf_w, ob_w in ((crecs[0], ccfs[0], ocb_b),
                                         (crecs[1], ccfs[1], ocr_b)):
                 sse_a = sse_a + _sse_blocks(crec_w, ob_w)
                 bits_a = bits_a + _cbits_of(ccf_w, calib)
-            cost_a = (sse_a + lam2 * bits_a).reshape(by, bx)
+            cost_a = fma32(sse_a, lam2, bits_a).reshape(by, bx)
+            if costs is not None:
+                costs.setdefault("cost_a", []).append(cost_a)
             acc = acc & (cost_a < inter_c8)
         rec_y = compose(rec_y, rec8, 8, acc)
         cf_y = compose(cf_y, cf8, 8, acc)
@@ -1041,10 +1086,11 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
                                      bit_depth)
     sao_p = None
     if sao:
-        p_y = choose_sao_t(oy[:rh, :rw], ry_c, ctu, qp, bit_depth, lam2)
+        p_y = choose_sao_t(oy[:rh, :rw], ry_c, ctu, qp, bit_depth, lam2,
+                           fused=True)
         p_cb, p_cr = choose_sao_chroma_t(
             ocb[:rh // 2, :rw // 2], rcb_c, ocr[:rh // 2, :rw // 2], rcr_c,
-            ctu // 2, qp, bit_depth, lam2)
+            ctu // 2, qp, bit_depth, lam2, fused=True)
         ry_c = apply_sao_t(ry_c, p_y, ctu, bit_depth)
         rcb_c = apply_sao_t(rcb_c, p_cb, ctu // 2, bit_depth)
         rcr_c = apply_sao_t(rcr_c, p_cr, ctu // 2, bit_depth)
@@ -1072,6 +1118,10 @@ class PgopPending:
         self.__dict__.update(kw)
 
 
+B_CTU64 = ("B frames at CTU 64: waits for a reference whose CTU-64 B "
+           "streams decode (ROADMAP queue 1 item 28)")
+
+
 def check_pgop_config(cfg: EncoderConfig) -> None:
     """Raise for every option the P-chunk path of this package does not
     implement (NotImplementedError naming its ROADMAP queue item)."""
@@ -1084,13 +1134,14 @@ def check_pgop_config(cfg: EncoderConfig) -> None:
         (cfg.wpp, "WPP", 17),
         (cfg.lossless, "lossless", 18),
         (cfg.bit_depth != 8, "10-bit", 19),
-        (cfg.bframes > 0, "B frames", 21),
         (cfg.hash_sei, "picture-hash SEI", 24),
     ]
     for cond, what, item in unported:
         if cond:
             raise NotImplementedError(
                 f"{what}: not ported yet (ROADMAP queue 1 item {item})")
+    if cfg.bframes > 0 and cfg.ctu_size == 64:
+        raise NotImplementedError(B_CTU64)
 
 
 def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,

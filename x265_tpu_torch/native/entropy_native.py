@@ -168,7 +168,10 @@ def encode_slice_native(slice_type: int, depth8: np.ndarray,
                         mode4: np.ndarray | None = None,
                         slice_qp: int = 26,
                         intra8: np.ndarray | None = None,
+                        mvb: np.ndarray | None = None,
+                        pf8: np.ndarray | None = None,
                         poc: int = 0,
+                        poc_refs: tuple[int, int] = (0, 0),
                         tusplit8: np.ndarray | None = None,
                         rqt_inter: bool = False,
                         ref8: np.ndarray | None = None,
@@ -177,8 +180,10 @@ def encode_slice_native(slice_type: int, depth8: np.ndarray,
                         tmvp: bool = False,
                         col=None
                         ) -> tuple[bytes, int, int]:
-    """Native slice encoder for I (mode8, NxN via nxn8/mode4) and P
-    (mv8, intra8, tusplit8) slices without dQP. SAO: sao_params =
+    """Native slice encoder for I (mode8, NxN via nxn8/mode4), P
+    (mv8, intra8, tusplit8) and B slices (mvb (n8y, n8x, 4) the L0 and
+    L1 MVs, pf8 the prediction flags, poc and poc_refs = (L0 POC, L1
+    POC) for the AMVP scaling) without dQP. SAO: sao_params =
     (p_y, p_cb, p_cr) per-CTU parameters. Multi-reference P: ref8,
     num_ref, ref_pocs_l0; TMVP: tmvp and col = (col_mv, col_ref8,
     col_inter8, col_poc, col_ref_pocs). Returns (payload_bytes,
@@ -203,6 +208,8 @@ def encode_slice_native(slice_type: int, depth8: np.ndarray,
     m4 = arr(mode4, np.uint8)
     i8 = arr(intra8, np.uint8)
     ts8 = arr(tusplit8, np.uint8)
+    mvbc = arr(mvb, np.int32)
+    pfc = arr(pf8, np.uint8)
     saos = [None] * 3 if sao_params is None else \
         [arr(p, np.int32) for p in sao_params]
     cap = w * h * 4 + 4096
@@ -212,8 +219,8 @@ def encode_slice_native(slice_type: int, depth8: np.ndarray,
     pext, _keep = _make_pext(ref8, num_ref, tmvp and slice_type == 1,
                              ref_pocs_l0, col)
     n = lib.encode_slice(
-        slice_type, ptr(d8), ptr(m8), ptr(mv), None, None,
-        poc, 0, 0, max_merge,
+        slice_type, ptr(d8), ptr(m8), ptr(mv), ptr(mvbc), ptr(pfc),
+        poc, poc_refs[0], poc_refs[1], max_merge,
         1 if sign_hiding else 0, 0, ptr(cm8),
         ptr(cy), ptr(cb), ptr(cr), *(ptr(p) for p in saos),
         ptr(nx8), ptr(m4), ptr(i8), ptr(ts8),

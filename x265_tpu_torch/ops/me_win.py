@@ -542,7 +542,8 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
                  ref16: torch.Tensor | None = None,
                  ref32: torch.Tensor | None = None,
                  cmv32: torch.Tensor | None = None,
-                 zero_planes: dict | None = None):
+                 zero_planes: dict | None = None,
+                 want_raw: bool = False):
     """Dense ME for every block of every size with two plane gathers per
     frame: one window per 16x16 region at its coarse seed (shared by the
     n=16 search and the four n=8 searches inside it) and one window per
@@ -563,13 +564,19 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
     search takes one current plane, so that plane is composed per
     region: compensated where the region's reference is 0.
 
-    Returns ({n: (mv_qpel (B,2), cost (B,), pred (B,n,n))},
+    want_raw (the B path, unweighted only): each size's tuple also
+    holds the selected prediction's pre-rounding accumulator (B,n,n),
+    a full-pel winner's as sample << (12 - (bit_depth - 8)).
+
+    Returns ({n: (mv_qpel (B,2), cost (B,), pred (B,n,n)[, raw])},
     {16: (sx, sy), 32: (sx, sy)} clamped per-region seeds)."""
     h, w = cur.shape
     dev = cur.device
     r = radius
     side = 2 * r + 1
     weighted = wvec is not None
+    assert not (weighted and want_raw), \
+        "raw accumulators are the unweighted contract (B path)"
     if weighted and cur_search is None:
         cur_search = inverse_weight_plane(cur.to(torch.int32), wvec[0],
                                           wvec[1], weight_denom, bit_depth)
@@ -642,8 +649,9 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
 
         dx = torch.zeros((b,), dtype=torch.int32, device=dev)
         dy = torch.zeros((b,), dtype=torch.int32, device=dev)
-        pred = wround(interp_ext_lanes(swin_t, dx + 3, dy + 3, n,
-                                       bit_depth, raw=True))
+        best_raw = interp_ext_lanes(swin_t, dx + 3, dy + 3, n, bit_depth,
+                                    raw=True)
+        pred = wround(best_raw)
         scost = sa8d_nxn_lanes(cur_t - pred, n) + \
             lam * _mv_bits(mvx_i * 4, mvy_i * 4)
         best_pred = pred
@@ -651,8 +659,9 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
             # one diamond round: the 8 neighbours of the current best
             cx = torch.clamp(dx[None, :] + noff[:, 0:1] * step, -3, 3)
             cy = torch.clamp(dy[None, :] + noff[:, 1:2] * step, -3, 3)
-            rnd = wround(interp_ext_lanes_multi(swin_t, cx + 3, cy + 3, n,
-                                                bit_depth, raw=True))
+            praw = interp_ext_lanes_multi(swin_t, cx + 3, cy + 3, n,
+                                          bit_depth, raw=True)
+            rnd = wround(praw)
             c = sa8d_multi(cur_t[None] - rnd, n) + \
                 lam * _mv_bits(mvx_i[None] * 4 + cx, mvy_i[None] * 4 + cy)
             mc, mi = _argmin_first(c)
@@ -662,6 +671,9 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
             dy = torch.where(better, _take_k(cy, mi), dy)
             best_pred = torch.where(better[None, None, :], _take_k(rnd, mi),
                                     best_pred)
+            if want_raw:
+                best_raw = torch.where(better[None, None, :],
+                                       _take_k(praw, mi), best_raw)
         mvqx = mvx_i * 4 + dx
         mvqy = mvy_i * 4 + dy
 
@@ -687,8 +699,9 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
             swc = select_window_lanes(win_t, torch.clamp(offy2, 0, 2 * r),
                                       torch.clamp(offx2, 0, 2 * r),
                                       n + 8, side)
-            p = wround(interp_ext_lanes(swc, (cqx & 3) + 3, (cqy & 3) + 3,
-                                        n, bit_depth, raw=True))
+            praw = interp_ext_lanes(swc, (cqx & 3) + 3, (cqy & 3) + 3, n,
+                                    bit_depth, raw=True)
+            p = wround(praw)
             c = sa8d_nxn_lanes(cur_t - p, n) + lam * 2
             c = torch.where(valid, c, 1 << 30)
             better = c < scost
@@ -696,6 +709,8 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
             mvqx = torch.where(better, cqx, mvqx)
             mvqy = torch.where(better, cqy, mvqy)
             best_pred = torch.where(better[None, None, :], p, best_pred)
+            if want_raw:
+                best_raw = torch.where(better[None, None, :], praw, best_raw)
 
         # dense zero-MV candidate (SATD level, no gather)
         if zero_plane is None:
@@ -712,8 +727,14 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
         mvqx = torch.where(zwin, 0, mvqx)
         mvqy = torch.where(zwin, 0, mvqy)
         best_pred = torch.where(zwin[None, None, :], zero_t, best_pred)
-        return (torch.stack([mvqx, mvqy], dim=1), scost,
-                best_pred.permute(2, 0, 1))
+        res = (torch.stack([mvqx, mvqy], dim=1), scost,
+               best_pred.permute(2, 0, 1))
+        if want_raw:
+            # full-pel accumulator scale: sample << total_shift
+            best_raw = torch.where(zwin[None, None, :],
+                                   zero_t << (12 - (bit_depth - 8)), best_raw)
+            res += (best_raw.permute(2, 0, 1),)
+        return res
 
     # weights reach reference 0 only (multi-reference)
     wm16 = (ref16 == 0) if weighted and ref16 is not None else None

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from .fma import fma32
+
 EO_SHIFTS = ((0, -1, 0, 1), (-1, 0, 1, 0), (-1, -1, 1, 1), (-1, 1, 1, -1))
 F32 = torch.float32
 
@@ -112,10 +114,24 @@ def _params(typ: int, cls_or_pos, offs: torch.Tensor) -> torch.Tensor:
     return torch.cat([head, offs.to(torch.int32)]).permute(1, 2, 0)
 
 
+def _cost(dd: torch.Tensor, lam: float, bits: torch.Tensor,
+          fused: bool) -> torch.Tensor:
+    """dd + lam * bits in float32: rounded once when fused (the
+    reference's jitted P and B frame bodies contract it into an FMA),
+    the product first otherwise (its I frame runs the choice op by
+    op)."""
+    if fused:
+        return fma32(dd, lam, bits.to(F32))
+    return dd + lam * bits
+
+
 def choose_sao_t(orig: torch.Tensor, rec: torch.Tensor, ctu: int, qp: int,
-                 bit_depth: int, lam: float) -> torch.Tensor:
+                 bit_depth: int, lam: float, fused: bool = False,
+                 costs: list | None = None) -> torch.Tensor:
     """Per-CTU SAO decision for one plane -> (ncty, nctx, 6) int32
-    [type, class_or_band, o0..o3]."""
+    [type, class_or_band, o0..o3]. fused: the RD costs round as in the
+    reference's jitted frame bodies (_cost). costs, when given,
+    receives each candidate's cost plane in the order they are tried."""
     max_off = (1 << (min(bit_depth, 10) - 5)) - 1
     eo_sum, eo_cnt, bsum, bcnt = sao_stats_t(orig, rec, ctu, bit_depth)
     ncty, nctx = eo_sum.shape[2:]
@@ -132,7 +148,9 @@ def choose_sao_t(orig: torch.Tensor, rec: torch.Tensor, ctu: int, qp: int,
             dd = dd + d
         offs = torch.stack(offs)
         bits = 2 + torch.abs(offs).sum(0, dtype=torch.int32) + 2
-        cost = dd + lam * bits
+        cost = _cost(dd, lam, bits, fused)
+        if costs is not None:
+            costs.append(cost)
         better = cost < best_cost
         params = torch.where(better[..., None], _params(2, cls, offs), params)
         best_cost = torch.where(better, cost, best_cost)
@@ -144,7 +162,9 @@ def choose_sao_t(orig: torch.Tensor, rec: torch.Tensor, ctu: int, qp: int,
         offs = torch.stack([bo[k] for k in ks])
         bits = 2 + torch.abs(offs).sum(0, dtype=torch.int32) + \
             (offs != 0).sum(0, dtype=torch.int32) + 5
-        cost = dd + lam * bits
+        cost = _cost(dd, lam, bits, fused)
+        if costs is not None:
+            costs.append(cost)
         better = cost < best_cost
         params = torch.where(better[..., None], _params(1, pos, offs), params)
         best_cost = torch.where(better, cost, best_cost)
@@ -152,9 +172,10 @@ def choose_sao_t(orig: torch.Tensor, rec: torch.Tensor, ctu: int, qp: int,
 
 
 def choose_sao_chroma_t(orig_cb, rec_cb, orig_cr, rec_cr, ctu: int, qp: int,
-                        bit_depth: int, lam: float):
+                        bit_depth: int, lam: float, fused: bool = False):
     """Joint cb/cr decision: a shared type and EO class, per-component
-    offsets and band positions. Returns (p_cb, p_cr)."""
+    offsets and band positions; fused as in choose_sao_t. Returns
+    (p_cb, p_cr)."""
     max_off = (1 << (min(bit_depth, 10) - 5)) - 1
     s_cb = sao_stats_t(orig_cb, rec_cb, ctu, bit_depth)
     s_cr = sao_stats_t(orig_cr, rec_cr, ctu, bit_depth)
@@ -180,7 +201,7 @@ def choose_sao_chroma_t(orig_cb, rec_cb, orig_cr, rec_cr, ctu: int, qp: int,
         offs_cr = torch.stack(offs_cr)
         bits = 2 + 2 + torch.abs(offs_cb).sum(0, dtype=torch.int32) + \
             torch.abs(offs_cr).sum(0, dtype=torch.int32)
-        cost = dd + lam * bits
+        cost = _cost(dd, lam, bits, fused)
         better = cost < best_cost
         p_cb = torch.where(better[..., None], _params(2, cls, offs_cb), p_cb)
         p_cr = torch.where(better[..., None], _params(2, cls, offs_cr), p_cr)
@@ -197,7 +218,7 @@ def choose_sao_chroma_t(orig_cb, rec_cb, orig_cr, rec_cr, ctu: int, qp: int,
             o = torch.stack([bo[k] for k in ks])
             bits = torch.abs(o).sum(0, dtype=torch.int32) + \
                 (o != 0).sum(0, dtype=torch.int32) + 5
-            c = dd + lam * bits
+            c = _cost(dd, lam, bits, fused)
             better = c < cost
             cost = torch.where(better, c, cost)
             pos_b = torch.where(better, p, pos_b)
