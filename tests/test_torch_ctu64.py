@@ -14,7 +14,14 @@ x265_tpu's:
 
 The stream is byte-identical to the reference's and x265_tpu.decoder
 decodes it to the port's recon. One reference encode and one port
-encode are shared by the module-scoped fixture. Inputs are made from
+encode are shared by the module-scoped fixture.
+
+A second stream runs the slowest preset under the same tune,
+--preset placebo --tune zerolatency (CTU 64, RDOQ, 5 references,
+merge 5, me_range 12), on the same clip: 1 I + 5 P in one chunk, so the
+last P frame has five distinct references. Its I frame is the medium
+stream's program (the reference's I frame uses none of RDOQ, the
+references or the search range). Inputs are made from
 seeds with numpy. Tolerance: exact equality everywhere (integer
 outputs; the float32 RD costs bit for bit)."""
 
@@ -424,3 +431,59 @@ def test_medium_stream_uses_64x64_cus_and_older_references(streams):
     assert any(s.intra8 is not None for s in ps)
     assert any(s.tusplit8 is not None for s in ps)
     assert any(any(p[..., 0].any() for p in s.sao_params) for s in ps)
+
+
+# ---------------------------------------------------------------------------
+# --preset placebo --tune zerolatency: RDOQ, 5 references, merge 5,
+# me_range 12
+# ---------------------------------------------------------------------------
+
+def placebo_config(h=H, w=W):
+    cfg = RefConfig(width=w, height=h, qp=32)
+    cfg.apply_preset("placebo")
+    cfg.apply_tune("zerolatency")
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def placebo_streams():
+    rcfg = placebo_config()
+    assert (rcfg.ctu_size, rcfg.num_refs, rcfg.max_merge, rcfg.me_range,
+            rcfg.rdoq, rcfg.bframes) == (64, 5, 5, 12, True, 0)
+    frames = medium_clip(6)
+
+    def encode(enc):
+        r0 = enc.encode_frame(*frames[0], qp=enc.cfg.qp - 3,
+                              use_device_recon=True)
+        enc.ref = r0.device_ref
+        enc.poc = 0
+        return [r0] + enc.encode_pgop_pipelined(frames[1:], chunk=5,
+                                                need_recon=True)
+
+    port = encode(IntraEncoder(config_from_dict(dataclasses.asdict(rcfg)),
+                               device="cpu"))
+    return encode(RefEncoder(rcfg)), port
+
+
+def test_placebo_stream_matches_reference(placebo_streams):
+    """Byte-identical, every syntax field equal, decoder-exact; the last
+    P frame lists five distinct references and predicts from reference
+    1 or later somewhere."""
+    ref, port = placebo_streams
+    assert len(port) == len(ref) == 6
+    for i, (a, b) in enumerate(zip(ref, port)):
+        assert a.bitstream == b.bitstream, f"frame {i}"
+        keys = I_FIELDS if i == 0 else P_FIELDS
+        for k in keys:
+            x, y = getattr(a.syntax, k), getattr(b.syntax, k)
+            assert (x is None) == (y is None), (i, k)
+            assert x is None or _same(x, y), (i, k)
+    dec = decode_annexb(b"".join(r.bitstream for r in port))
+    for i, (d, r) in enumerate(zip(dec, port)):
+        for k in ("y", "cb", "cr"):
+            np.testing.assert_array_equal(getattr(d, k), getattr(r.recon, k),
+                                          err_msg=f"frame {i} {k}")
+    last = port[-1].syntax
+    assert last.num_ref == 5 and len(set(last.ref_pocs)) == 5
+    assert any(s.syntax.ref8 is not None and (s.syntax.ref8 > 0).any()
+               for s in port[1:])

@@ -116,10 +116,12 @@ def test_entry_points_want_a_gpu():
 
 @pytest.mark.parametrize("field,value", [
     ("num_refs", 2), ("tmvp", True), ("sao", True), ("ctu_size", 64),
-    ("bframes", 3)])
+    ("bframes", 3), ("rdoq", True), ("nr_inter", 100),
+    ("lowpass_dct", True)])
 def test_ported_options_construct(field, value):
-    """Multi-reference prediction, TMVP, SAO, CTU 64 and B frames (at
-    CTU 32) are ported: the encoder and the P-chunk path take them."""
+    """Multi-reference prediction, TMVP, SAO, CTU 64, B frames (at CTU
+    32), RDOQ, noise reduction and the lowpass DCT are ported: the
+    encoder and the P-chunk path take them."""
     from x265_tpu_torch.enc.pgop_gpu import check_pgop_config
     cfg = EncoderConfig(width=64, height=64, qp=32)
     setattr(cfg, field, value)
@@ -128,9 +130,8 @@ def test_ported_options_construct(field, value):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("aq_mode", 2, 15), ("rdoq", True, 16),
-    ("nr_inter", 100, 16), ("lowpass_dct", True, 16), ("wpp", True, 17),
-    ("lossless", True, 18), ("bit_depth", 10, 19), ("hash_sei", 1, 24)])
+    ("aq_mode", 2, 15), ("wpp", True, 17), ("lossless", True, 18),
+    ("bit_depth", 10, 19), ("hash_sei", 1, 24)])
 def test_unported_options_raise(field, value, item):
     cfg = EncoderConfig(width=64, height=64, qp=32)
     setattr(cfg, field, value)

@@ -80,12 +80,14 @@ def test_fma32_halfway_cases(sign):
                                                 for v in (a, b, c))))
 
 
-def float_comparison_operands(fn, *args):
+def float_comparison_operands(fn, *args, argmin: bool = False):
     """Run fn (a JAX function of array pytrees) jitted, returning its
     outputs and the operands of every float32 `<` / `<=` comparison at
     the top level of its program, in trace order: the cost planes each
     decision compares, read from the reference's own program (the
-    comparison's operands become extra outputs of the same jaxpr)."""
+    comparison's operands become extra outputs of the same jaxpr).
+    argmin: also the operand of every float32 argmin (the stacked costs
+    of a first-index choice, e.g. RDOQ's level candidates)."""
     import jax
     import jax.extend.core as jc
     import jax.numpy as jnp
@@ -94,7 +96,8 @@ def float_comparison_operands(fn, *args):
         lambda *fl: fn(*jax.tree.unflatten(tree, fl)), return_shape=True)(
         *flat)
     jp = closed.jaxpr
-    extra = [v for e in jp.eqns if e.primitive.name in ("lt", "le")
+    prims = ("lt", "le", "argmin") if argmin else ("lt", "le")
+    extra = [v for e in jp.eqns if e.primitive.name in prims
              and e.invars[0].aval.dtype == jnp.float32
              for v in e.invars if isinstance(v, jc.Var)]
     run = jax.jit(jc.jaxpr_as_fun(jc.ClosedJaxpr(

@@ -2,10 +2,11 @@
 search) against their plain PyTorch versions on a CUDA card, at the
 bench path's shapes and at the fast/zerolatency and medium/zerolatency
 paths' (stacked references, sides 11 and 21, a composed search
-current) and the B path's (one reference per plane), and the card's
-stream against the CPU's at an odd me_range, in the fast/zerolatency
-and medium/zerolatency configurations and with B frames (--preset
-fast).
+current) and the B path's (one reference per plane), RDOQ and the
+lowpass DCT on the card against the CPU, and the card's stream against
+the CPU's at an odd me_range, in the fast/zerolatency,
+medium/zerolatency and placebo/zerolatency configurations, with noise
+reduction and with B frames (--preset fast).
 This file imports neither JAX nor the reference package, so it runs on
 a machine with a GPU and no JAX:
 
@@ -463,6 +464,61 @@ def test_card_stream_equals_cpu_fast_b_frames():
     pf = np.concatenate([r.syntax.pf8.ravel() for r in card
                          if r.ftype == "B"])
     assert (pf == 2).any() and (pf == 3).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qp", (32, "vector"))
+def test_rdoq_and_lowpass_on_card_equal_cpu(qp):
+    """rdoq_lanes and rdoq_batch at every TU size, at one QP and with a
+    per-block QP vector, and the lowpass DCT: the card's levels, deltaU
+    and every float32 comparison operand (the level candidates' costs,
+    the group and TU gains) equal the CPU's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from x265_tpu_torch.ops import transforms as tr
+    rng = np.random.default_rng(7)
+    for n in (4, 8, 16, 32):
+        tc = (rng.standard_normal((n, n, 300)) *
+              rng.choice([3, 30, 300, 3000], (1, 1, 300))).astype(np.int32)
+        q = 32 if qp == 32 else rng.integers(0, 52, 300).astype(np.int32)
+        for fn, x in ((tr.rdoq_lanes, tc),
+                      (tr.rdoq_batch, np.ascontiguousarray(
+                          tc.transpose(2, 0, 1)))):
+            outs = []
+            for dev in ("cpu", "cuda"):
+                ops = []
+                qq = q if qp == 32 else torch.from_numpy(q).to(dev)
+                lv, du = fn(torch.from_numpy(x).to(dev), n, qq, 57.0,
+                            with_rem=True, costs=ops)
+                outs.append([lv.cpu(), du.cpu()] + [o.cpu() for o in ops])
+            for a, b in zip(*outs):
+                assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                                   else a, b.view(torch.int32)
+                                   if b.is_floating_point() else b)
+        if n >= 8:
+            r = torch.from_numpy(rng.integers(-255, 256, (n, n, 50))
+                                 .astype(np.int32))
+            assert torch.equal(tr.dct_lanes(r.cuda(), n, lowpass=True).cpu(),
+                               tr.dct_lanes(r, n, lowpass=True))
+
+
+@pytest.mark.gpu
+def test_card_stream_equals_cpu_placebo_and_noise_reduction():
+    """--preset placebo --tune zerolatency (RDOQ, 5 references, merge 5,
+    me_range 12) on the 72x128 clip, 1 I + 5 P in one chunk, and the
+    bench configuration with noise reduction 600 and the lowpass DCT on
+    a 64x96 clip in chunks of 2: the same bytes on the card as on the
+    CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    from chip_smoke import (encode_ippp, nr_lowpass_config, placebo_config,
+                            small_clip)
+    for frames, make_cfg, chunk in ((medium_clip(6), placebo_config, 5),
+                                    (small_clip(5), nr_lowpass_config, 2)):
+        h, w = frames[0][0].shape
+        card = encode_ippp(frames, "cuda", make_cfg(h, w), chunk=chunk)
+        cpu = encode_ippp(frames, "cpu", make_cfg(h, w), chunk=chunk)
+        assert [r.bitstream for r in card] == [r.bitstream for r in cpu]
 
 
 def test_search_cpu_tensors_take_the_plain_version():

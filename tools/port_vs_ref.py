@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """The GPU port against the JAX reference on the CPU, frame for frame:
 
-    python3 tools/port_vs_ref.py [--size HxW] [--legs bench,fast,medium,fast_b]
+    python3 tools/port_vs_ref.py [--size HxW]
+        [--legs bench,fast,medium,slow,placebo,fast_b]
 
 Encodes the first frames of chip_smoke.py's bench clip (cropped to
 --size, default 1080x1920) with x265_tpu and with x265_tpu_torch, both on
-the CPU, in four legs: 1 I + 2 P in the bench configuration, under
---preset fast --tune zerolatency and under --preset medium --tune
-zerolatency, and 1 I + one mini-GOP of 4 under --preset fast (B
-frames). For each frame it diffs the bytes, every syntax field and the
-8x8 inter leaf cost inter_c8 of every P and B frame (read from both
-packages' _rd_depth_decision as they run). Prints one JSON line per leg (differing
-frames, bytes, syntax fields and inter_c8 cells, seconds) and exits 1
-if any leg differs. Needs JAX: run it where the reference runs, not on
+the CPU, in six legs: 1 I + 2 P in the bench configuration and under
+--preset fast|medium|slow|placebo --tune zerolatency (slow: RDOQ and 4
+references; placebo: RDOQ, 5 references, merge 5, me_range 12), and 1 I
++ one mini-GOP of 4 under --preset fast (B frames). For each frame it
+diffs the bytes, every syntax field and the 8x8 inter leaf cost
+inter_c8 of every P and B frame (read from both packages'
+_rd_depth_decision as they run). Prints one JSON line per leg
+(differing frames, bytes, syntax fields and inter_c8 cells, seconds)
+and exits 1 if any leg differs. Needs JAX: run it where the reference runs, not on
 the GPU machine. The reference traces its programs anew for each size
 and configuration (minutes each at 1080p, and tens of GiB of host
 memory).
@@ -34,7 +36,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-LEGS = ("bench", "fast", "medium", "fast_b")
+LEGS = ("bench", "fast", "medium", "slow", "placebo", "fast_b")
 
 
 def _config(leg, h, w, RefConfig):
@@ -42,7 +44,7 @@ def _config(leg, h, w, RefConfig):
     if leg == "bench":
         return RefConfig(width=w, height=h, qp=32, deblock=True, sao=False,
                          me_range=10)
-    cfg.apply_preset("medium" if leg == "medium" else "fast")
+    cfg.apply_preset("fast" if leg == "fast_b" else leg)
     if leg != "fast_b":
         cfg.apply_tune("zerolatency")
     return cfg

@@ -2,7 +2,8 @@
 on the GPU against two already reconstructed references.
 
 Counterpart of x265_tpu/enc/bframe_tpu.py (x265 analysis.cpp
-checkBidir2Nx2N) at CTU 32 without dQP or RDOQ. The reference runs a
+checkBidir2Nx2N) at CTU 32 without dQP; RDOQ as the reference's (it
+has no noise reduction and no lowpass DCT). The reference runs a
 layer as one lax.scan with no carry; here it is a Python loop whose
 body does, all on the device, per frame: for each list, the quarter-res
 coarse search and the windowed ME of every block of every size
@@ -35,7 +36,7 @@ from ..ops.me_win import _argmin_first, me_all_sizes, pad_ref
 from ..ops.sao_gpu import apply_sao_t, choose_sao_chroma_t, choose_sao_t
 from ..ops.satd import sa8d_nxn_lanes
 from ..ops.transforms import (dct_batch, dequant_batch, idct_batch,
-                              quant_batch, sign_hide_batch)
+                              quant_batch, rdoq_batch, sign_hide_batch)
 from .intra_analysis import edge_pad, up as _up
 from .intra_recon import DeviceRef
 from .pgop_gpu import (B_CTU64, SIZES, _blk_sse, _blocks_of,
@@ -107,12 +108,13 @@ def _bs_maps_b_t(depth8, mvb, pf8, cf_y, ctu: int):
 def _bframe(refs0, refs1, oy, ocb, ocr, *, qp: int, qpc: int,
             bit_depth: int, real_h: int, real_w: int, ctu: int,
             deblock: bool, sao: bool, sign_hiding: bool, me_range: int,
-            psy_rd: float):
+            psy_rd: float, rdoq: bool = False):
     """One B frame. refs0/refs1: (y, cb, cr) int32 planes of the L0 and
     L1 references at the scan size (CTU multiples, edge-padded); o*
-    int32 source planes at the scan size. Returns (depth8, mvb8 (n8y,
-    n8x, 2, 2), pf8, cf_y, cf_cb, cf_cr, sao (3, ncty, nctx, 6) or
-    None, rec_y, rec_cb, rec_cr), the recon cropped to the coded size."""
+    int32 source planes at the scan size; rdoq: the RD quantiser.
+    Returns (depth8, mvb8 (n8y, n8x, 2, 2), pf8, cf_y, cf_cb, cf_cr, sao
+    (3, ncty, nctx, 6) or None, rec_y, rec_cb, rec_cr), the recon
+    cropped to the coded size."""
     dev = oy.device
     lam = float(lambda_from_qp(qp))
     lam2 = float(lambda2_from_qp(qp))
@@ -174,7 +176,14 @@ def _bframe(refs0, refs1, oy, ocb, ocr, *, qp: int, qpc: int,
     def one_plane(orig, nn, qqp, pred):
         obk = _blocks_of(orig, nn)
         tcoef = dct_batch(obk - pred, nn, bit_depth)
-        if sign_hiding:
+        if rdoq:
+            if sign_hiding:
+                coefs, du = rdoq_batch(tcoef, nn, qqp, lam2, bit_depth,
+                                       with_rem=True)
+                coefs = sign_hide_batch(coefs, nn, 0, du)
+            else:
+                coefs = rdoq_batch(tcoef, nn, qqp, lam2, bit_depth)
+        elif sign_hiding:
             coefs, du = quant_batch(tcoef, nn, qqp, bit_depth, intra=False,
                                     with_rem=True)
             coefs = sign_hide_batch(coefs, nn, 0, du)
@@ -330,7 +339,7 @@ def encode_bframes_gpu(frames, ref0s, ref1s, cfg: EncoderConfig, qp: int,
             qp=int(qp), qpc=int(qpc), bit_depth=cfg.bit_depth, real_h=h,
             real_w=w, ctu=cfg.ctu_size, deblock=cfg.deblock, sao=cfg.sao,
             sign_hiding=cfg.sign_hiding, me_range=int(cfg.me_range),
-            psy_rd=float(cfg.psy_rd))
+            psy_rd=float(cfg.psy_rd), rdoq=bool(cfg.rdoq))
         syn = FrameBSyntax(
             depth8=depth8[:n8y, :n8x].cpu().numpy(),
             mv8=mvb8[:n8y, :n8x].cpu().numpy().astype(np.int32),

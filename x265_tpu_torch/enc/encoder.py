@@ -4,15 +4,17 @@ Encoder::encode analog).
 Counterpart of the device paths of x265_tpu/enc/encoder.py: an I frame
 through device analysis + the wavefront recon + deblock + SAO (or F of
 them through one batched wavefront, encode_gop), P chunks through
-enc/pgop_gpu.py (one or several references, TMVP, SAO), and
-hierarchical mini-GOPs whose B layers run through enc/bframe_gpu.py;
-every frame entropy-coded by the native CABAC and packed into Annex-B
-NAL units. Reference pictures stay on the device between frames
-(DeviceRef); the host keeps the DPB bookkeeping (references available
-since the IDR, their POCs, the mini-GOP's retention RPS), the
-collocated picture for TMVP and the encode statistics. Options this
-package does not implement raise NotImplementedError naming their
-ROADMAP queue item; nothing falls back to a reduced mode.
+enc/pgop_gpu.py (one or several references, TMVP, SAO, RDOQ, noise
+reduction, the lowpass DCT), and hierarchical mini-GOPs whose B layers
+run through enc/bframe_gpu.py (RDOQ too; the I frame, as the
+reference's, uses none of the three); every frame entropy-coded by
+the native CABAC and packed into Annex-B NAL units. Reference pictures
+stay on the device between frames (DeviceRef); the host keeps the DPB
+bookkeeping (references available since the IDR, their POCs, the
+mini-GOP's retention RPS), the collocated picture for TMVP and the
+encode statistics. Options this package does not implement raise
+NotImplementedError naming their ROADMAP queue item; nothing falls back
+to a reduced mode.
 """
 
 from __future__ import annotations
@@ -141,20 +143,11 @@ class IntraEncoder:
     def reconfigure(self, **updates) -> int:
         """x265_encoder_reconfig analog: latch parameter changes for the
         next frame; returns 0 on success, -1 if an update is not
-        reconfigurable. An update that turns on an option this package
-        does not implement is undone and raises NotImplementedError."""
-        old = {k: getattr(self.cfg, k) for k in updates
-               if hasattr(self.cfg, k)}
+        reconfigurable (every reconfigurable field is ported)."""
         try:
             self.cfg.reconfigure(**updates)
         except (ValueError, NotImplementedError):
             return -1
-        try:
-            check_pgop_config(self.cfg)
-        except NotImplementedError:
-            for k, v in old.items():
-                setattr(self.cfg, k, v)
-            raise
         return 0
 
     def get_stats(self) -> dict:

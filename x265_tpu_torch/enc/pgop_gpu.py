@@ -3,14 +3,16 @@
 Counterpart of x265_tpu/enc/pgop_tpu.py for CTU 32 and 64 without dQP:
 one or several references (multi-reference selection from the coarse
 pass), deblock, SAO, sign hiding, RQT depth 1, weightp, psy-rd,
-intra-in-inter; at CTU 64 a depth-0 64x64 CU is built from the 32-level
-content where its four 32-blocks agree. The reference expresses the
-chain as one lax.scan; here it is a Python loop whose body does, all on
-the device: coarse quarter-res search (one per reference) -> windowed
-ME for every block of every size (ops/me_win.py, on the window-gather
-and integer-search kernels) -> windowed chroma MC -> intra 8x8 estimate
--> MC + transform + quant + recon at every size with a leaf-RDO depth
-decision -> intra-in-inter -> in-loop deblock and SAO on the coded
+intra-in-inter, RDOQ, noise reduction (its state carried from frame to
+frame within a submit) and the lowpass DCT; at CTU 64 a depth-0 64x64
+CU is built from the 32-level content where its four 32-blocks agree.
+The reference expresses the chain as one lax.scan; here it is a Python
+loop whose body does, all on the device: coarse quarter-res search (one
+per reference) -> windowed ME for every block of every size
+(ops/me_win.py, on the window-gather and integer-search kernels) ->
+windowed chroma MC -> intra 8x8 estimate -> MC + transform + quant +
+recon at every size with a leaf-RDO depth decision -> intra-in-inter ->
+in-loop deblock and SAO on the coded
 crop. With R references the carried reference is the stack of the R
 most recent pictures. submit_pgop_gpu enqueues a chunk and
 returns before the device finishes it; collect_pgop_gpu downloads
@@ -47,8 +49,8 @@ from ..ops.sao_gpu import apply_sao_t, choose_sao_chroma_t, choose_sao_t
 from ..ops.satd import sa8d_batch, sa8d_nxn_lanes
 from ..ops.transforms import (dct_batch, dct_lanes, dequant_batch,
                               dequant_lanes, idct_batch, idct_lanes,
-                              quant_batch, quant_lanes, sign_hide_batch,
-                              sign_hide_lanes)
+                              quant_batch, quant_lanes, rdoq_lanes,
+                              sign_hide_batch, sign_hide_lanes)
 from .intra_analysis import _MODE_BITS, block_sum_seq, edge_pad, up as _up
 from .intra_recon import DeviceRef, ReconFrame
 from .intra_recon_gpu import _scan_sel, _substitute
@@ -424,10 +426,68 @@ def _cu64_candidate(sse, bits, mvs, refs, tusplit, m_scale: float,
     mvs[64], refs[64] = mv_tl, r_tl
 
 
+# noise-reduction categories of the P frames: (TU size, plane kind), the
+# x265 frameencoder.cpp category layout over the sizes this path codes
+# (inter luma 8-32, chroma 4-16)
+NR_CATS = ((8, "y"), (16, "y"), (32, "y"), (4, "c"), (8, "c"), (16, "c"))
+
+
+def _nr_denoise(tcoef: torch.Tensor, off_flat: torch.Tensor):
+    """x265 denoiseDct: |coef| -= offset per position, clamped at 0, the
+    sign restored. tcoef (n, n, B) int32; off_flat (n*n,) float32.
+    Returns the denoised coefficients and the per-position sums of
+    |coef| before denoising (float32, the NR accumulator's input)."""
+    n = tcoef.shape[0]
+    off = off_flat.reshape(n, n, 1).to(torch.int32)
+    a = torch.abs(tcoef)
+    return torch.sign(tcoef) * torch.clamp(a - off, min=0), \
+        a.sum(2, dtype=torch.int32).reshape(-1).to(F32)
+
+
+def _nr_state_init(device) -> tuple:
+    """The NR state at the start of a submit: per category the sums
+    (n*n,) and the count, all zero."""
+    return (tuple(torch.zeros(n * n, dtype=F32, device=device)
+                  for n, _ in NR_CATS),
+            tuple(torch.zeros((), dtype=F32, device=device)
+                  for _ in NR_CATS))
+
+
+def _nr_offsets(state, nr: int) -> dict:
+    """Per-position denoise offsets from the carried (sums, counts)
+    (frameencoder.cpp noiseReductionUpdate: value / denominator, DC
+    0); the multiply-add rounds once, as in the reference's program."""
+    sums, counts = state
+    offs = {}
+    for ci, key in enumerate(NR_CATS):
+        sm = sums[ci]
+        off = fma32(sm * 0.5, float(nr), counts[ci]) / (sm + 1.0)
+        off[0] = 0.0
+        offs[key] = off
+    return offs
+
+
+def _nr_update(state, accum: dict) -> tuple:
+    """Add a frame's accumulators to the state, halving a category whose
+    count passes its cap (maxBlocksPerTrSize, frameencoder.cpp)."""
+    sums, counts = state
+    new_s, new_c = [], []
+    for ci, (nn, kind) in enumerate(NR_CATS):
+        acc, nb = accum[(nn, kind)]
+        sm = sums[ci] + acc
+        ct = counts[ci] + float(nb)
+        halve = ct > float(1 << (22 - 2 * (nn.bit_length() - 1)))
+        new_s.append(torch.where(halve, sm * 0.5, sm))
+        new_c.append(torch.where(halve, ct * 0.5, ct))
+    return tuple(new_s), tuple(new_c)
+
+
 def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
                   sign_hiding, real_h, real_w, preds, cpreds, refs_grid,
                   nrefs: int, psy_rd=0.0, rqt=False, alt8_cost=None,
-                  ctu: int = 32, costs: dict | None = None):
+                  ctu: int = 32, costs: dict | None = None,
+                  rdoq: bool = False, lowpass: bool = False,
+                  nr_offsets: dict | None = None):
     """MC + residual coding at EVERY CU size with that size's own MV
     field (predictions from the windowed ME), leaf-RDO depth decision
     from the true recon SSE + estimated bits, then compose by depth.
@@ -440,7 +500,14 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
     when given, receives the float32 planes each decision compares:
     'split16' / 'split32' (TU-split cost, unsplit cost), 'sse' and
     'bits' (the per-size inputs of the depth decision, psy included),
-    and those of _rd_depth_decision."""
+    and those of _rd_depth_decision; with RDOQ 'rdoq', the list of
+    each call's comparison operands (ops.transforms._rdoq) in the
+    reference's order.
+    rdoq replaces the dead-zone quantiser, lowpass the forward DCT of
+    N >= 8 (both also in the TU-split candidate); nr_offsets (per
+    NR_CATS key) denoises the coefficients of the unsplit TUs and makes
+    the return a pair (outputs, NR accumulators {key: (sums, blocks)}),
+    as the reference's."""
     dev = oy.device
     calib = calib_for_qp(qp)
     cal3 = calib[:3]
@@ -448,11 +515,32 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
     h, w = oy.shape
     maxv = (1 << bit_depth) - 1
 
-    def one_plane(orig, nn, qqp, pred):
-        """Residual pipeline in lanes layout (nn, nn, B)."""
+    nr_accum = {}
+    rdoq_ops = None
+    if costs is not None and rdoq:
+        rdoq_ops = costs["rdoq"] = []
+
+    def one_plane(orig, nn, qqp, pred, nr_kind=None):
+        """Residual pipeline in lanes layout (nn, nn, B); nr_kind ('y' /
+        'c') denoises and accumulates that NR category."""
         resi = _lanes_of_plane(orig, nn) - pred
-        tcoef = dct_lanes(resi, nn, bit_depth)
-        if sign_hiding:
+        tcoef = dct_lanes(resi, nn, bit_depth, lowpass=lowpass)
+        if nr_offsets is not None and nr_kind is not None:
+            tcoef, acc = _nr_denoise(tcoef, nr_offsets[(nn, nr_kind)])
+            nb = tcoef.shape[2]
+            prev = nr_accum.get((nn, nr_kind))
+            nr_accum[(nn, nr_kind)] = (acc, nb) if prev is None \
+                else (prev[0] + acc, prev[1] + nb)
+        if rdoq:
+            # RDOQ replaces the dead-zone quantiser
+            if sign_hiding:
+                coefs, du = rdoq_lanes(tcoef, nn, qqp, lam2, bit_depth,
+                                       with_rem=True, costs=rdoq_ops)
+                coefs = sign_hide_lanes(coefs, nn, 0, du)
+            else:
+                coefs = rdoq_lanes(tcoef, nn, qqp, lam2, bit_depth,
+                                   costs=rdoq_ops)
+        elif sign_hiding:
             coefs, du = quant_lanes(tcoef, nn, qqp, bit_depth, intra=False,
                                     with_rem=True)
             coefs = sign_hide_lanes(coefs, nn, 0, du)  # inter: diag scan
@@ -474,9 +562,9 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
         def lan(p):
             return p.permute(1, 2, 0)
 
-        rec_y, cf_y = one_plane(oy, n, qp, lan(preds[n]))
-        rec_cb, cf_cb = one_plane(ocb, cn, qpc, lan(cpreds[n][0]))
-        rec_cr, cf_cr = one_plane(ocr, cn, qpc, lan(cpreds[n][1]))
+        rec_y, cf_y = one_plane(oy, n, qp, lan(preds[n]), "y")
+        rec_cb, cf_cb = one_plane(ocb, cn, qpc, lan(cpreds[n][0]), "c")
+        rec_cr, cf_cr = one_plane(ocr, cn, qpc, lan(cpreds[n][1]), "c")
         planes[n] = (_to_plane(rec_y, n, h, w), _to_plane(cf_y, n, h, w),
                      _to_plane(rec_cb, cn, h // 2, w // 2),
                      _to_plane(cf_cb, cn, h // 2, w // 2),
@@ -580,7 +668,8 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
         mpx_c = _up(m8, 4)
         for i, p in enumerate(planes[n]):
             out[i] = torch.where(mpx if i < 2 else mpx_c, p, out[i])
-    return out + [depth8, mv8, tusplit8, ref8, intra_pref, inter_c8]
+    out = out + [depth8, mv8, tusplit8, ref8, intra_pref, inter_c8]
+    return out if nr_offsets is None else (out, nr_accum)
 
 
 # =============================================================================
@@ -987,14 +1076,19 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
                 bit_depth: int, real_h: int, real_w: int, ctu: int,
                 deblock: bool, sao: bool, sign_hiding: bool, me_range: int,
                 intra_ii: bool, psy_rd: float, weight_denom: int, rqt: bool,
-                nrefs: int):
+                nrefs: int, rdoq: bool = False, lowpass: bool = False,
+                nr: int = 0, nr_state=None):
     """One P frame. refs: (ry, rcb, rcr) (nrefs, ...) int32 stacks of
     the nrefs most recent reference pictures at the scan size
     (CTU multiples, edge-padded), slot 0 the newest; oy/ocb/ocr int32
     source planes at the scan size; wvec: (6,) int32 weights or None.
-    Returns (fields, next references): fields = (depth8, mv8, cf_y,
-    cf_cb, cf_cr, intra8, imode8, tusplit8, ref8, sao, rec_y, rec_cb,
-    rec_cr), sao (3, ncty, nctx, 6) int32 or None."""
+    rdoq, lowpass: the RD quantiser and the lowpass DCT; nr: the noise
+    reduction strength, with nr_state the carried (sums, counts)
+    (_nr_state_init).
+    Returns (fields, next references, next NR state or None): fields =
+    (depth8, mv8, cf_y, cf_cb, cf_cr, intra8, imode8, tusplit8, ref8,
+    sao, rec_y, rec_cb, rec_cr), sao (3, ncty, nctx, 6) int32 or
+    None."""
     dev = oy.device
     lam = float(lambda_from_qp(qp))
     lam2 = float(lambda2_from_qp(qp))
@@ -1049,11 +1143,17 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
     else:
         icost8_m = None
 
-    (rec_y, cf_y, rec_cb, cf_cb, rec_cr, cf_cr, depth8, mv8, tusplit8,
-     ref8, intra_pref, inter_c8) = _mc_recon_all(
+    res = _mc_recon_all(
         oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth, sign_hiding, rh, rw,
         preds=preds, cpreds=cpreds, refs_grid=refs_grid, nrefs=nrefs,
-        psy_rd=psy_rd, rqt=rqt, alt8_cost=icost8_m, ctu=ctu)
+        psy_rd=psy_rd, rqt=rqt, alt8_cost=icost8_m, ctu=ctu, rdoq=rdoq,
+        lowpass=lowpass,
+        nr_offsets=_nr_offsets(nr_state, nr) if nr else None)
+    if nr:
+        res, accum = res
+        nr_state = _nr_update(nr_state, accum)
+    (rec_y, cf_y, rec_cb, cf_cb, rec_cr, cf_cr, depth8, mv8, tusplit8,
+     ref8, intra_pref, inter_c8) = res
 
     if intra_ii:
         (rec_y, rec_cb, rec_cr, cf_y, cf_cb, cf_cr, intra8,
@@ -1104,7 +1204,7 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
     fields = (depth8.to(torch.uint8), mv8, cf_y, cf_cb, cf_cr,
               intra8.to(torch.uint8), imode8, tusplit8.to(torch.uint8),
               ref8.to(torch.uint8), sao_p) + rec
-    return fields, nxt
+    return fields, nxt, (nr_state if nr else None)
 
 
 # =============================================================================
@@ -1129,8 +1229,6 @@ def check_pgop_config(cfg: EncoderConfig) -> None:
         (cfg.ctu_size == 16, "CTU 16 (all-intra, the host-recon I path)",
          18),
         (cfg.dqp_enabled, "dQP / AQ / cuTree", 15),
-        (cfg.rdoq or cfg.nr_inter or cfg.lowpass_dct,
-         "RDOQ / noise reduction / lowpass DCT", 16),
         (cfg.wpp, "WPP", 17),
         (cfg.lossless, "lossless", 18),
         (cfg.bit_depth != 8, "10-bit", 19),
@@ -1215,14 +1313,20 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
     else:
         wv = None
     outs = []
+    # the NR state starts at zero on every submit, as the reference's
+    # scan starts its carry
+    nr = int(cfg.nr_inter)
+    nr_state = _nr_state_init(dev) if nr else None
     for i in range(f):
-        fields, cur = _pgop_frame(
+        fields, cur, nr_state = _pgop_frame(
             cur, oys[i], ocbs[i], ocrs[i], None if wv is None else wv[i],
             qp=int(qp), qpc=int(qpc), bit_depth=cfg.bit_depth, real_h=h,
             real_w=w, ctu=cfg.ctu_size, deblock=cfg.deblock, sao=cfg.sao,
             sign_hiding=cfg.sign_hiding, me_range=int(me_range),
             intra_ii=cfg.intra_in_inter, psy_rd=float(cfg.psy_rd),
-            weight_denom=6, rqt=bool(cfg.rqt_inter), nrefs=nrefs)
+            weight_denom=6, rqt=bool(cfg.rqt_inter), nrefs=nrefs,
+            rdoq=bool(cfg.rdoq), lowpass=bool(cfg.lowpass_dct), nr=nr,
+            nr_state=nr_state)
         outs.append(fields)
     last_ref = DeviceRef(*(p[..., :hh, :ww].to(torch.uint8).contiguous()
                            for p, hh, ww in ((cur[0], h, w),

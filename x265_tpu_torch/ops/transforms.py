@@ -15,6 +15,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .fma import fma32
 from ..common.tables import (DCT_MATRICES, DST4, QUANT_SCALES,
                              INV_QUANT_SCALES, QUANT_SHIFT, scan_order,
                              transform_shift)
@@ -65,10 +66,26 @@ def _qp_parts(qp: int, log2n: int, bit_depth: int):
 # =============================================================================
 
 def dct_lanes(resi: torch.Tensor, size: int, bit_depth: int = 8,
-              dst: bool = False) -> torch.Tensor:
+              dst: bool = False, lowpass: bool = False) -> torch.Tensor:
     """Forward transform of (N, N, B) blocks -> (N, N, B) coefficients
-    ([row, col] = [vertical, horizontal] frequency)."""
+    ([row, col] = [vertical, horizontal] frequency).
+
+    lowpass (x265 --lowpass-dct): for N >= 8 the half-size DCT of the
+    2x2-summed residual >> 2 fills the low band (the rest is zero) and
+    DC is the block sum scaled to the full-size DC. Encoder side only:
+    the coefficients decode through the normative inverse."""
     log2n = size.bit_length() - 1
+    if lowpass and size >= 8:
+        r = resi.to(torch.int32)
+        s2x2 = r[0::2, 0::2] + r[0::2, 1::2] + r[1::2, 0::2] + r[1::2, 1::2]
+        half = dct_lanes(s2x2 >> 2, size // 2, bit_depth)
+        total = r.sum((0, 1), dtype=torch.int32)
+        exp = 7 - 2 * log2n - (bit_depth - 8)
+        dc = total << exp if exp >= 0 else total >> -exp
+        out = torch.zeros(resi.shape, dtype=torch.int32, device=resi.device)
+        out[:size // 2, :size // 2] = half
+        out[0, 0] = dc
+        return out
     t = _mat64(size, dst, False, resi.device)
     s1 = log2n + bit_depth - 9
     s2 = log2n + 6
@@ -251,3 +268,247 @@ def sign_hide_batch(coefs: torch.Tensor, size: int, scan_sel,
     lv = _sign_hide_cg(to_cg(coefs), to_cg(delta_u), rank)
     return lv.reshape(b, ncgs, ncgs, 4, 4).permute(0, 1, 3, 2, 4) \
         .reshape(b, n, n)
+
+
+# =============================================================================
+# RDOQ: the reference's batched rate-distortion optimised quantisation
+# (x265 rdoQuant's vectorisable core: round-half levels, the {0,
+# level-1, level} choice by cost, then 4x4-group and whole-TU zeroing)
+# =============================================================================
+#
+# Float exactness. The reference's compiled CPU program decides the bits
+# of every float32 it compares, and three of its properties are copied
+# here, each found by comparing bits with that program:
+# - exp2(k) is lowered as exp(k * ln2) with the product rounded to
+#   float32, so the quantiser step 2^qbits is not a power of two for
+#   most qbits (_EXP2_F32);
+# - division by a constant becomes a multiply by its float32 reciprocal
+#   (scalar qp), and multiply-adds are contracted: the residual
+#   e = |c|*scale - level*step rounds once (but for the round-half
+#   candidate's where the step lies above its power of two), a cost
+#   is fma(e*e, 1/norm, lam2*bits), the distortion gain is
+#   fma(e0*e0, 1/norm, -dist(level)); with per-block QP the division
+#   stays one and a cost is dist + lam2*bits;
+# - float32 sums: a 4x4 group's in row-major order; a TU's as the
+#   compiler vectorises it, which depends on the size and the layout
+#   (_tu_sum_vec).
+
+_LN2_F32 = np.float32(np.log(2.0))
+# exp2 as the reference's compiler computes it, for integer arguments
+_EXP2_F32 = np.array([np.float32(np.exp(np.float64(np.float32(k) *
+                                                  _LN2_F32)))
+                      for k in range(64)], np.float32)
+
+
+def _bitlen(a: torch.Tensor) -> torch.Tensor:
+    """Bit length of non-negative int32 levels (0 for 0), read from the
+    float32 exponent as the reference does: exact up to 2^24."""
+    e = (a.to(torch.float32).view(torch.int32) >> 23) - 126
+    return torch.where(a > 0, e, 0)
+
+
+def _halves(v) -> torch.Tensor:
+    """A vector register's reassociated sum: lanes i and i + n/2 first."""
+    v = list(v)
+    while len(v) > 1:
+        h = len(v) // 2
+        v = [v[i] + v[i + h] for i in range(h)]
+    return v[0]
+
+
+def _cg_sum_seq(x: torch.Tensor) -> torch.Tensor:
+    """(g, 4, g, 4, B) -> (g, g, B): each 4x4 group's float32 sum in
+    row-major order."""
+    acc = x[:, 0, :, 0]
+    for u in range(4):
+        for v in range(4):
+            if u or v:
+                acc = acc + x[:, u, :, v]
+    return acc
+
+
+def _tu_sum_vec(x: torch.Tensor, keep, batch: bool) -> torch.Tensor:
+    """(N, N, B) -> (B,): a TU's float32 sum of x where keep (a
+    broadcastable bool, None for all) in the order of the reference's
+    vectorised loop. N <= 16: four lanes, lane l walks rows l, l + 4,
+    ... each left to right, then the lanes as halves. N = 32 walks the
+    rows with one running total in lane 0 of a 4-column register: the
+    lanes layout adds a row's eight 4-column vectors v0..v7 as
+    ((((v0 + v4) + (v1 + v5)) + (v2 + v6)) + (v3 + v7)), the batch
+    layout as two registers over 8-column strides, added; then
+    halves."""
+    n = x.shape[0]
+    if keep is not None:
+        x = torch.where(keep, x, 0.0)
+    if n <= 16:
+        r = x.reshape(n // 4, 4, n, -1)            # row i = 4q + lane
+        acc = r[0, :, 0]
+        for q in range(n // 4):
+            for j in range(n):
+                if q or j:
+                    acc = acc + r[q, :, j]
+        return _halves(acc)
+    v = x.reshape(n, 8, 4, -1)                     # (row, k, lane, B)
+    if batch:
+        a = v[:, 0] + v[:, 2]
+        a = (a + v[:, 4]) + v[:, 6]
+        b = v[:, 1] + v[:, 3]
+        b = (b + v[:, 5]) + v[:, 7]
+        lane0 = [v[:, 2, 0], v[:, 4, 0], v[:, 6, 0]]
+        rest = b[:, 0]
+    else:
+        p15, p26, p37 = v[:, 1] + v[:, 5], v[:, 2] + v[:, 6], \
+            v[:, 3] + v[:, 7]
+        a = (((v[:, 0] + v[:, 4]) + p15) + p26) + p37
+        lane0 = [v[:, 4, 0], p15[:, 0], p26[:, 0], p37[:, 0]]
+        rest = None
+    t = b + a if batch else a
+    # lanes 1-3 do not see the running total: all rows at once; lane 0
+    # carries it from row to row
+    t13 = t[:, 1] + t[:, 3]
+    acc = None
+    for i in range(n):
+        t0 = v[i, 0, 0] if acc is None else acc + v[i, 0, 0]
+        for term in lane0:
+            t0 = t0 + term[i]
+        if rest is not None:
+            t0 = rest[i] + t0
+        acc = (t0 + t[i, 2]) + t13[i]
+    return acc
+
+
+def _rdoq(tcoef: torch.Tensor, log2n: int, qp, lam2: float,
+          bit_depth: int, with_rem: bool, costs: list | None,
+          batch: bool = False):
+    """RDOQ of (N, N, B) coefficients (a view of either layout, batch
+    for the (B, N, N) one); qp a python int or a (B,) int32 tensor.
+    costs, when given, receives the float32 operands of the reference's
+    comparisons in its order: the three candidates' costs (3, N, N, B),
+    then per pass (group, TU) the distortion gain and lam2 * (bits +
+    2)."""
+    dev = tcoef.device
+    n = tcoef.shape[0]
+    ts = transform_shift(log2n, bit_depth)
+    tgain = float(_EXP2_F32[2 * ts])
+    if isinstance(qp, (int, np.integer)):
+        qp = int(qp)
+        qbits = QUANT_SHIFT + qp // 6 + ts
+        scale = int(QUANT_SCALES[qp % 6])
+        step = float(_EXP2_F32[qbits])
+        sc = np.float32(scale)
+        inv = float(np.float32(1.0) / np.float32(sc * sc * np.float32(tgain)))
+        half = 1 << (qbits - 1)
+    else:
+        qv = qp.to(torch.int32)[None, None, :]
+        qbits = QUANT_SHIFT + torch.div(qv, 6, rounding_mode="floor") + ts
+        rem = qv - torch.div(qv, 6, rounding_mode="floor") * 6
+        scales, exp2 = _rdoq_tables(dev)
+        scale, step = scales[rem], exp2[qbits]
+        sf = scale.to(torch.float32)
+        norm = sf * sf * tgain
+        inv = None
+        half = torch.ones_like(qbits) << (qbits - 1)
+    a = torch.abs(tcoef) * scale                  # levelDouble, int32
+    # round-half levels (no dead zone): the RD choice replaces the bias
+    l_up = torch.clamp((a + half) >> qbits, 0, 32767)
+    af64 = a.to(torch.float32).to(torch.float64)
+
+    def resid2(lq, fused=True):
+        # |c|*scale - level*step, rounded once (exact in float64), or
+        # with the product rounded first
+        if not fused:
+            e = a.to(torch.float32) - lq.to(torch.float32) * step
+        else:
+            e = (af64 - lq.to(torch.float64) * step).to(torch.float32)
+        return e * e
+
+    def bits_of(lq):
+        # static-context bits: sig + greater1/2 + sign + Golomb
+        return torch.where(lq > 0, 2.0 + 2.0 * _bitlen(lq).to(torch.float32),
+                           0.0)
+
+    if inv is not None:
+        def cost(lq, fused=True):
+            return fma32(lam2 * bits_of(lq), resid2(lq, fused), inv)
+
+        def dist(lq):
+            return resid2(lq) * inv
+
+        def gain(lq):
+            return fma32(-dist(lq), resid2(torch.zeros_like(lq)), inv)
+    else:
+        def cost(lq, fused=True):
+            return resid2(lq, fused) / norm + lam2 * bits_of(lq)
+
+        def dist(lq):
+            return resid2(lq) / norm
+
+        def gain(lq):
+            return dist(torch.zeros_like(lq)) - dist(lq)
+
+    lm1 = torch.clamp(l_up - 1, min=0)
+    # the round-half candidate's product rounds first where the step
+    # lies above its power of two (as the reference's program does)
+    c0, c1 = cost(torch.zeros_like(l_up)), cost(lm1)
+    c2 = cost(l_up, fused=not (inv is not None and step > 2.0 ** qbits))
+    if costs is not None:
+        costs.append(torch.stack([c0, c1, c2]))
+    # the first index wins ties
+    newlv = torch.where((c1 < c0) & ~(c2 < c1), lm1,
+                        torch.where(c2 < torch.minimum(c0, c1), l_up, 0))
+    d_gain = gain(newlv)
+    r_gain = bits_of(newlv)
+    if n > 4:
+        g = n // 4
+        b = newlv.shape[-1]
+        dd = _cg_sum_seq(d_gain.reshape(g, 4, g, 4, b))
+        rr = r_gain.reshape(g, 4, g, 4, b).sum((1, 3))  # integer-valued
+        rhs = lam2 * (rr + 2.0)
+        if costs is not None:
+            costs += [dd, rhs]
+        kill = (dd <= rhs) & (rr > 0)
+        keep = ~kill.repeat_interleave(4, 0).repeat_interleave(4, 1)
+        newlv = torch.where(keep, newlv, 0)
+        r_gain = torch.where(keep, r_gain, 0.0)
+    else:
+        keep = None
+    dd_tu = _tu_sum_vec(d_gain, keep, batch)
+    rr_tu = r_gain.sum((0, 1))
+    rhs_tu = lam2 * (rr_tu + 2.0)
+    if costs is not None:
+        costs += [dd_tu, rhs_tu]
+    kill_tu = (dd_tu <= rhs_tu) & (rr_tu > 0)
+    newlv = torch.where(kill_tu, 0, newlv)
+    out = torch.sign(tcoef) * newlv
+    if not with_rem:
+        return out
+    return out, (a - (newlv << qbits)) >> (qbits - 8)
+
+
+@lru_cache(maxsize=None)
+def _rdoq_tables(device: torch.device):
+    """QUANT_SCALES and _EXP2_F32 on the device (per-block QP)."""
+    return (torch.as_tensor(QUANT_SCALES, device=device),
+            torch.as_tensor(_EXP2_F32, device=device))
+
+
+def rdoq_lanes(tcoef: torch.Tensor, size: int, qp, lam2: float,
+               bit_depth: int = 8, with_rem: bool = False,
+               costs: list | None = None):
+    """RD-quantise (N, N, B) coefficients (replaces quant_lanes when RDOQ
+    is on); qp a python int or a (B,) int32 tensor. with_rem also
+    returns the deltaU remainders for sign-bit hiding; costs, see
+    _rdoq."""
+    return _rdoq(tcoef, size.bit_length() - 1, qp, lam2, bit_depth,
+                 with_rem, costs)
+
+
+def rdoq_batch(tcoef: torch.Tensor, size: int, qp, lam2: float,
+               bit_depth: int = 8, with_rem: bool = False,
+               costs: list | None = None):
+    """rdoq_lanes for (B, N, N) coefficients (costs in the lanes layout)."""
+    res = _rdoq(tcoef.permute(1, 2, 0), size.bit_length() - 1, qp, lam2,
+                bit_depth, with_rem, costs, batch=True)
+    if not with_rem:
+        return res.permute(2, 0, 1)
+    return res[0].permute(2, 0, 1), res[1].permute(2, 0, 1)
