@@ -50,9 +50,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      pipelined chunks of 8, one warm-up pass, one timed pass; in the
      timed pass the gather must have launched 4 times per P frame and
      the search 2 times;
-  5. one torch.profiler trace of a bench-path P chunk: the ten device
-     ops that take the most time, then the ops the integer search used
-     to launch (aten::sub, abs, sum) and the two kernels;
+  5. one torch.profiler trace of a bench-path P chunk of PROFILE_P
+     frames: the device busy time per P frame, the ten device ops that
+     take the most time, then the ops the integer search used to launch
+     (aten::sub, abs, sum) and the two kernels;
   6. the fast/zerolatency path at full size (--preset fast --tune
      zerolatency: 3 references, TMVP, SAO, me_range 5): the same clip,
      passes and launch checks as phase 4, with the share of 8x8 cells
@@ -80,8 +81,21 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      must have launched 4 times per anchor P and 8 per B frame, the
      search 2 and 4; then one profile of a mini-GOP (device rows and
      the ten ops with the most host time);
-  10. the kernels line (one JSON object; launches summed over the timed
-     passes of the five paths, and per path; times and bounds per P
+  10. per-CTU QP: card == CPU, streams and QP maps, on encode_sequence
+     with aq-mode 2 + cuTree under --preset medium --tune zerolatency
+     at 1080p (1 I + 2 P: the device lookahead, a host-recon I frame,
+     dQP P chunks; some CTU must code a QP other than its slice's), a
+     64x96 --preset fast B loop with aq-mode 2, a 64x96 lossless I
+     frame and a CTU-16 I frame; then that aq_cutree path at full size
+     (the bench clip through encode_sequence, one warm-up pass, one
+     timed pass: fps, the I frame's seconds with its host-recon split,
+     the lookahead's seconds per GOP, seconds per P frame, bytes, the
+     QP maps' min, max, mean and share off the slice QP; the gather
+     must have launched 4 times per P frame and the search 2), one
+     profile of its P chunk with its maps, and the device's busy and
+     idle shares of its P-frame wall;
+  11. the kernels line (one JSON object; launches summed over the timed
+     passes of the six paths, and per path; times and bounds per P
      frame at the bench path's shapes, as its ms_of says), the card
      line, and the last line
      {"ok": true, "device": {...}}.
@@ -102,6 +116,7 @@ import torch
 
 GOP = 25                     # 1 I + 24 P, the bench clip
 CHUNK = 8
+PROFILE_P = 2                # P frames in each profiled chunk
 QP = 32
 CARD_CPU_SIZE = (1080, 1920)  # (h, w) of the I + 1 P card-vs-CPU leg
 BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak
@@ -359,6 +374,15 @@ def fast_b_config(h, w):
     return cfg
 
 
+def aq_cutree_config(h, w):
+    """--preset medium --tune zerolatency with aq-mode 2 and cuTree at
+    CQP 32: the medium configuration with every frame's per-CTU QP from
+    the device lookahead."""
+    cfg = medium_config(h, w)
+    cfg.aq_mode, cfg.cutree = 2, True
+    return cfg
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -456,6 +480,63 @@ def encode_random_access(frames, device, cfg, timing=None):
         timing.update(i_frame_s=i_s, **secs, b_frames_s=rest -
                       secs["anchor_p_s"] - secs["lookahead_s"])
     return results, lengths
+
+
+def encode_seq(frames, device, cfg, timing=None):
+    """encode_sequence (keyint and scene-cut frame types, the device
+    lookahead's QP maps, a host-recon I frame per GOP, pipelined P
+    chunks) through the port's user entry point. Returns (results, the
+    QP maps as coded, one (map, slice QP) per frame: the lookahead's,
+    the I frame's lowered by 3). `timing`, when a dict, receives the I
+    frames' seconds with their host-recon split (analysis on the
+    device, then the host's recon, filters and CABAC), the lookahead's
+    seconds per GOP and the P frames' seconds (the device synchronized
+    around each)."""
+    from x265_tpu_torch.enc import IntraEncoder
+    enc = IntraEncoder(cfg, device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    secs, split, maps = Counter(), Counter(), []
+    real_la, real_i, real_p = (enc.lookahead_qp_maps, enc.encode_frame,
+                               enc.encode_pgop_pipelined)
+
+    def lookahead(*a, **k):
+        maps.append(real_la(*a, **k))
+        return maps[-1]
+
+    def timed(name, fn):
+        def run(*a, **k):
+            sync()
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            sync()
+            secs[name] += time.perf_counter() - t
+            if fn is real_i:
+                split.update(enc.host_i_seconds)
+            return r
+        return run
+
+    enc.lookahead_qp_maps = lookahead
+    enc.encode_frame = timed("i_frame_s", real_i)
+    enc.encode_pgop_pipelined = timed("p_frames_s", real_p)
+    res = enc.encode_sequence(frames)
+    coded = []
+    for m in maps:
+        coded.append((np.clip(m[0] - 3, 0, 51), max(cfg.qp - 3, 0)))
+        coded.extend((x, cfg.qp) for x in m[1:])
+    if timing is not None:
+        timing.update(**secs, host_i_split_s=dict(split),
+                      lookahead_s=list(enc.lookahead_seconds))
+    return res, coded
+
+
+def qp_map_stats(coded) -> dict:
+    """Over the QP maps of one encode: min, max and mean entry, and the
+    share of CTU entries that differ from their slice QP."""
+    allq = np.concatenate([m.ravel() for m, _ in coded])
+    ne = sum(int((m != q).sum()) for m, q in coded)
+    return {"qp_map_min": int(allq.min()), "qp_map_max": int(allq.max()),
+            "qp_map_mean": float(allq.mean()),
+            "qp_ne_slice_share": ne / allq.size}
 
 
 def b_stats(res) -> dict:
@@ -1023,6 +1104,135 @@ def phase_b_profile(frames):
                           "calls": e.count}), flush=True)
 
 
+def phase_dqp_card_equals_cpu():
+    """The per-CTU-QP legs, card against CPU: byte-identical streams and
+    equal QP maps. encode_sequence with AQ 2 + cuTree at 1080p (1 I + 2
+    P), a 64x96 --preset fast B mini-GOP with AQ 2 (flat maps through
+    the P and B bodies), a 64x96 lossless I frame and a CTU-16 keyint-1
+    I frame (both on the host-recon I path)."""
+    from x265_tpu_torch.common.params import EncoderConfig
+    from x265_tpu_torch.enc import IntraEncoder
+
+    def fast_b_aq(h, w):
+        cfg = fast_b_config(h, w)
+        cfg.aq_mode = 2
+        return cfg
+
+    def i_frame(make_cfg):
+        def run(frames, device):
+            return [IntraEncoder(make_cfg(), device=device)
+                    .encode_frame(*frames[0])], []
+        return run
+
+    frame = small_clip(1)
+    legs = (
+        ("aq2 + cutree medium/zerolatency 1080x1920 1I+2P encode_sequence",
+         full_size_clip(3), lambda fr, d: encode_seq(
+             fr, d, aq_cutree_config(*fr[0][0].shape))),
+        ("fast + aq2 64x96 1I+4 B loop", b_clip(5),
+         lambda fr, d: (encode_random_access(fr, d, fast_b_aq(64, 96))[0],
+                        [])),
+        ("lossless 64x96 I", frame, i_frame(lambda: EncoderConfig(
+            width=96, height=64, qp=QP, lossless=True))),
+        ("ctu16 keyint 1 64x96 I", frame, i_frame(lambda: EncoderConfig(
+            width=96, height=64, qp=QP, ctu_size=16, keyint=1, bframes=0,
+            deblock=True))))
+    out = None
+    for tag, frames, run in legs:
+        t0 = time.perf_counter()
+        gpu, gmaps = run(frames, "cuda")
+        t1 = time.perf_counter()
+        cpu, cmaps = run(frames, "cpu")
+        t2 = time.perf_counter()
+        if len(gpu) != len(cpu) or any(
+                a.bitstream != b.bitstream for a, b in zip(gpu, cpu)):
+            raise AssertionError(f"card != CPU at {tag}")
+        maps_g, maps_c = ([m for m, _ in coded] +
+                          [r.syntax.qp_map for r in res
+                           if getattr(r.syntax, "qp_map", None) is not None]
+                          for coded, res in ((gmaps, gpu), (cmaps, cpu)))
+        if len(maps_g) != len(maps_c) or any(
+                not np.array_equal(a, b) for a, b in zip(maps_g, maps_c)):
+            raise AssertionError(f"card != CPU QP maps at {tag}")
+        rec = {"card_equals_cpu": tag, "frames": len(gpu),
+               "bytes": sum(len(r.bitstream) for r in gpu),
+               "card_s": t1 - t0, "cpu_s": t2 - t1}
+        if gmaps:
+            rec.update(qp_map_stats(gmaps))
+        print(json.dumps(rec), flush=True)
+        if "encode_sequence" in tag:
+            out = gpu
+            if rec["qp_ne_slice_share"] == 0:
+                raise AssertionError(f"{tag}: every CTU at its slice QP")
+        if "B loop" in tag and not any(r.ftype == "B" for r in gpu):
+            raise AssertionError(f"{tag}: no B frame")
+    return out
+
+
+def phase_aq_cutree(first_frames):
+    """The medium/zerolatency path with AQ 2 + cuTree at full size,
+    through encode_sequence: the bench clip, one warm-up pass, then a
+    timed pass with every launch count set to 0 just before it and read
+    just after. The lookahead sees the whole 25-frame GOP, so its maps
+    differ from the 3-frame card-vs-CPU leg's: the timed pass must
+    repeat the warm-up pass, and its I frame (the host-recon path) and
+    lookahead run as they do there. Then one profile of its P chunk
+    with its maps after its I frame, and the device's busy and idle
+    shares of the timed pass's P-frame wall. Returns the launches."""
+    from x265_tpu_torch.ops.me_win import gather_windows, \
+        int_search_pair_windows, int_search_windows
+    frames = [synth_1080p(i % 3, shift=2 * i) for i in range(GOP)]
+    cfg = aq_cutree_config(1080, 1920)
+    t0 = time.perf_counter()
+    warm, _ = encode_seq(frames, "cuda", cfg)
+    warm_s = time.perf_counter() - t0
+    counted = (gather_windows, int_search_pair_windows, int_search_windows)
+    for fn in counted:
+        fn.launches = 0
+    split = {}
+    t0 = time.perf_counter()
+    res, coded = encode_seq(frames, "cuda", cfg, timing=split)
+    wall = time.perf_counter() - t0
+    launches = {"gather_windows": gather_windows.launches,
+                "int_search": int_search_pair_windows.launches +
+                int_search_windows.launches}
+    n_p = sum(r.ftype == "P" for r in res)
+    n_i = len(res) - n_p
+    want = {"gather_windows": 4 * n_p, "int_search": 2 * n_p}
+    if launches != want or int_search_pair_windows.launches != n_p:
+        raise AssertionError(f"aq_cutree: launches {launches}, want {want}")
+    if len(res) != GOP or n_p == 0 or any(len(r.bitstream) == 0
+                                          for r in res):
+        raise AssertionError("aq_cutree produced missing frames")
+    if any(a.bitstream != b.bitstream for a, b in zip(res, warm)):
+        raise AssertionError("aq_cutree: two passes over one clip differ")
+    if first_frames is None or len(first_frames) != 3:
+        raise AssertionError("aq_cutree: no card-vs-CPU leg ran")
+    stats = qp_map_stats(coded)
+    if stats["qp_ne_slice_share"] == 0:
+        raise AssertionError("aq_cutree: every CTU at its slice QP")
+    nbytes = sum(len(r.bitstream) for r in res)
+    print(json.dumps({
+        "path": "aq_cutree", "clip": "1080p encode_sequence CQP32 aq-mode "
+        "2 + cuTree, 25 frames", "frames": len(res),
+        "frame_types": "".join(r.ftype for r in res), "bytes": nbytes,
+        "medium_path_bytes": 732471, "i_frame_bytes": len(res[0].bitstream),
+        "warmup_s": warm_s, "wall_s": wall, "fps": GOP / wall, **split,
+        "i_frame_s_each": split["i_frame_s"] / n_i,
+        "lookahead_s_per_gop": split["lookahead_s"],
+        "p_frame_s": split["p_frames_s"] / n_p, "launches": launches,
+        **stats, **path_stats(res, cfg.ctu_size)}), flush=True)
+    busy_ms = phase_profile(frames, cfg, "aq_cutree", coded,
+                            res[0].device_ref)
+    p_s = split["p_frames_s"] / n_p
+    print(json.dumps({"path": "aq_cutree", "device_busy_ms_per_p_frame":
+                      busy_ms, "p_frame_s": p_s,
+                      "device_busy_share": busy_ms / 1e3 / p_s,
+                      "device_idle_share": 1 - busy_ms / 1e3 / p_s}),
+          flush=True)
+    return launches
+
+
 def phase_path(path: str, make_cfg, first_frames):
     """One path at full size: the bench clip, 1 I + 24 P in chunks of 8,
     one warm-up pass, then a timed pass with every launch count set to
@@ -1132,21 +1342,31 @@ def phase_rdoq(frames):
     return rec
 
 
-def phase_profile(frames, cfg, path="bench"):
-    """torch.profiler over one P chunk of the path in configuration cfg:
-    the ten device ops that take the most time, a few watched ops, and
-    the chunk's device-busy share."""
+def phase_profile(frames, cfg, path="bench", coded=None, i_ref=None):
+    """torch.profiler over one P chunk of PROFILE_P frames of the path in
+    configuration cfg (the trace's processing, not the frames, takes
+    most of a profile's time): the device busy time per P frame, the
+    ten device ops that take the most time, a few watched ops, and the
+    chunk's device-busy share of the profiled wall. coded: the (map,
+    slice QP) per frame of a dQP path, whose maps the chunk codes;
+    i_ref: the I frame's DeviceRef, when one is already encoded.
+    Returns the device busy ms per P frame."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from x265_tpu_torch.enc import IntraEncoder
     enc = IntraEncoder(cfg, device="cuda")
-    r0 = enc.encode_frame(*frames[0], qp=QP - 3, need_recon=False)
-    enc.ref = r0.device_ref
+    if i_ref is None:
+        i_ref = enc.encode_frame(*frames[0], qp=QP - 3,
+                                 need_recon=False).device_ref
+    enc.ref = i_ref
+    maps = None if coded is None else \
+        np.stack([m for m, _ in coded[1:1 + PROFILE_P]])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        enc.encode_pgop(frames[1:1 + CHUNK], need_recon=False)
+        enc.encode_pgop(frames[1:1 + PROFILE_P], need_recon=False,
+                        qp_maps=maps)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -1161,9 +1381,10 @@ def phase_profile(frames, cfg, path="bench"):
     # device-side rows only: an operator row repeats its kernels' time
     busy_ms = sum(self_dev_us(e) for e in kernels
                   if e.device_type == DeviceType.CUDA) / 1e3
-    print(json.dumps({"profile": f"one {path} P chunk of {CHUNK} at 1080p",
-                      "wall_ms_profiled": wall_ms,
+    print(json.dumps({"profile": f"one {path} P chunk of {PROFILE_P} at "
+                      "1080p", "wall_ms_profiled": wall_ms,
                       "device_busy_ms": busy_ms,
+                      "device_busy_ms_per_p_frame": busy_ms / PROFILE_P,
                       "device_busy_share": busy_ms / wall_ms}), flush=True)
     for e in kernels[:10]:
         print(json.dumps({"path": path, "top_device_op": e.key[:120],
@@ -1177,6 +1398,7 @@ def phase_profile(frames, cfg, path="bench"):
             print(json.dumps({"path": path, "watched_device_op": e.key[:120],
                               "self_device_ms": self_dev_us(e) / 1e3,
                               "calls": e.count}), flush=True)
+    return busy_ms / PROFILE_P
 
 
 def main() -> int:
@@ -1188,6 +1410,14 @@ def main() -> int:
 
     card = card_line()
     t0 = time.perf_counter()
+    phase_s, last = {}, [t0]
+
+    def done(phase):
+        """Record the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        phase_s[phase] = phase_s.get(phase, 0.0) + now - last[0]
+        last[0] = now
+
     nvcc_s = kernels.build(kernels.sources())
     t1 = time.perf_counter()
     get_lib()
@@ -1197,6 +1427,7 @@ def main() -> int:
                       "nvcc_s": nvcc_s, "native_cabac_s": gxx_s,
                       "build_s": time.perf_counter() - t0}), flush=True)
     print_build_report(kernels)
+    done("build")
 
     phase_int_rates()
     gather = {"bench": phase_gather(SHAPES),
@@ -1208,8 +1439,10 @@ def main() -> int:
                                       timing=False)}
     search = phase_search()
     log("kernel == plain at every main-path shape")
+    done("kernels")
     legs = phase_card_equals_cpu()
     log("card == CPU")
+    done("card_equals_cpu")
     launches = {}
     for path, make_cfg, first in (
             ("bench", bench_config,
@@ -1221,17 +1454,34 @@ def main() -> int:
             ("slow", slow_config, legs["slow/zerolatency 1080x1920 1I+2P"])):
         launches[path], frames = phase_path(path, make_cfg, first)
         log(f"{path} path ran, launches {launches[path]}")
+        done(f"{path}_path")
         phase_profile(frames, make_cfg(1080, 1920), path)
+        done(f"{path}_profile")
     phase_rdoq(frames)
+    done("rdoq")
     first = phase_b_card_equals_cpu()
     log("B path: card == CPU")
+    done("b_card_equals_cpu")
     launches["fast_b"], frames = phase_b_path(first)
     log(f"fast_b path ran, launches {launches['fast_b']}")
+    done("fast_b_path")
     phase_b_profile(frames)
+    done("fast_b_profile")
+    first = phase_dqp_card_equals_cpu()
+    log("dQP legs: card == CPU")
+    done("dqp_card_equals_cpu")
+    launches["aq_cutree"] = phase_aq_cutree(first)
+    log(f"aq_cutree path ran, launches {launches['aq_cutree']}")
+    done("aq_cutree_path_and_profile")
+    print(json.dumps({"phase_seconds": phase_s,
+                      "total_s": time.perf_counter() - t0}), flush=True)
 
     # per path, each kernel's per-P-frame numbers at that path's shapes
-    # (the B path's searches have the fast path's shapes: side 11)
+    # (the B path's searches have the fast path's shapes: side 11; the
+    # aq_cutree path has the medium path's shapes)
     search["fast_b"] = search["fast"]
+    gather["aq_cutree"], search["aq_cutree"] = gather["medium"], \
+        search["medium"]
     print(json.dumps({"kernels_per_path": {
         path: {"gather_windows": {**{k: gather[path][k] for k in
                                      ("ms", "plain_ms", "library_ms",
@@ -1242,7 +1492,7 @@ def main() -> int:
                                  ("ms", "plain_ms", "bound_ms", "bound_by")},
                               "launches": launches[path]["int_search"]}}
         for path in launches}}), flush=True)
-    # launches: summed over the five paths' timed passes; the times and
+    # launches: summed over the six paths' timed passes; the times and
     # the bound: per P frame at the bench path's shapes (ms_of)
     total = {k: sum(n[k] for n in launches.values())
              for k in ("gather_windows", "int_search")}

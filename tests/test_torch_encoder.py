@@ -74,14 +74,17 @@ def test_ippp_stream_matches_reference(h, w):
 
 def test_package_imports_neither_jax_nor_reference():
     """Every module of x265_tpu_torch (the B path's enc/bframe_gpu.py and
-    enc/lookahead.py, ops/fma.py among them), and chip_smoke.py, import
-    without pulling JAX or the reference package into the process."""
+    enc/lookahead.py, ops/fma.py, the device lookahead
+    enc/lookahead_gpu.py and the host I path's ops/sao.py and
+    ops/intra_np.py among them), and chip_smoke.py, import without
+    pulling JAX or the reference package into the process."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import x265_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "x265_tpu_torch.__path__, 'x265_tpu_torch.')]\n"
-        "for n in ('enc.bframe_gpu', 'enc.lookahead', 'ops.fma'):\n"
+        "for n in ('enc.bframe_gpu', 'enc.lookahead', 'ops.fma',\n"
+        "          'enc.lookahead_gpu', 'ops.sao', 'ops.intra_np'):\n"
         "    assert 'x265_tpu_torch.' + n in names, n\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
@@ -117,11 +120,11 @@ def test_entry_points_want_a_gpu():
 @pytest.mark.parametrize("field,value", [
     ("num_refs", 2), ("tmvp", True), ("sao", True), ("ctu_size", 64),
     ("bframes", 3), ("rdoq", True), ("nr_inter", 100),
-    ("lowpass_dct", True)])
+    ("lowpass_dct", True), ("aq_mode", 2), ("lossless", True)])
 def test_ported_options_construct(field, value):
     """Multi-reference prediction, TMVP, SAO, CTU 64, B frames (at CTU
-    32), RDOQ, noise reduction and the lowpass DCT are ported: the
-    encoder and the P-chunk path take them."""
+    32), RDOQ, noise reduction, the lowpass DCT, AQ (per-CTU QP) and
+    lossless are ported: the encoder and the P-chunk path take them."""
     from x265_tpu_torch.enc.pgop_gpu import check_pgop_config
     cfg = EncoderConfig(width=64, height=64, qp=32)
     setattr(cfg, field, value)
@@ -129,9 +132,19 @@ def test_ported_options_construct(field, value):
     check_pgop_config(cfg)
 
 
+def test_tune_ssim_constructs():
+    """--tune ssim sets aq-mode 2 (per-CTU QP from the lookahead's AQ),
+    which the encoder and the P-chunk path take."""
+    from x265_tpu_torch.enc.pgop_gpu import check_pgop_config
+    cfg = EncoderConfig(width=64, height=64, qp=32)
+    cfg.apply_tune("ssim")
+    assert cfg.aq_mode == 2 and cfg.dqp_enabled
+    IntraEncoder(cfg, device="cpu")
+    check_pgop_config(cfg)
+
+
 @pytest.mark.parametrize("field,value,item", [
-    ("aq_mode", 2, 15), ("wpp", True, 17), ("lossless", True, 18),
-    ("bit_depth", 10, 19), ("hash_sei", 1, 24)])
+    ("wpp", True, 17), ("bit_depth", 10, 19), ("hash_sei", 1, 24)])
 def test_unported_options_raise(field, value, item):
     cfg = EncoderConfig(width=64, height=64, qp=32)
     setattr(cfg, field, value)
@@ -141,14 +154,23 @@ def test_unported_options_raise(field, value, item):
 
 
 def test_ctu16_raises_naming_the_host_recon_i_path():
-    """CTU 16 is all-intra only (keyint 1; with another keyint the
-    config's validate refuses it first, as the reference's does), and
-    the reference runs it through the host-recon I path alone."""
+    """CTU 16 is all-intra only: with keyint 1 the encoder constructs
+    and codes its I frames through the host-recon I path (the device
+    wavefront, which encode_gop batches frames through, runs CTU 32
+    and 64 and says so, naming that path); with another keyint the
+    config's validate refuses it, as the reference's does."""
+    from x265_tpu_torch.enc.intra_recon_gpu import reconstruct_intra_gop_gpu
     cfg = EncoderConfig(width=64, height=64, qp=32, ctu_size=16, keyint=1,
                         bframes=0)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 18"):
-        IntraEncoder(cfg, device="cpu")
+    enc = IntraEncoder(cfg, device="cpu")
+    fr = _frames(1, 64, 64)[0]
+    res = enc.encode_frame(*fr)
+    assert set(enc.host_i_seconds) == {"analysis", "recon", "filters",
+                                       "cabac"}
+    dec = decode_annexb(res.bitstream)[0]
+    np.testing.assert_array_equal(dec.y, res.recon.y)
+    with pytest.raises(NotImplementedError, match="host-recon I path"):
+        reconstruct_intra_gop_gpu(None, None, None, None, None, cfg)
     with pytest.raises(NotImplementedError, match="all-intra only"):
         IntraEncoder(EncoderConfig(width=64, height=64, qp=32, ctu_size=16),
                      device="cpu")
@@ -182,12 +204,22 @@ def test_b_frames_at_ctu64_and_the_host_b_path_raise():
 
 
 def test_host_recon_i_path_raises():
-    enc = IntraEncoder(EncoderConfig(width=64, height=64, qp=32),
-                       device="cpu")
-    z = np.zeros((64, 64), np.uint8)
-    zc = np.zeros((32, 32), np.uint8)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        enc.encode_frame(z, zc, zc, use_device_recon=False)
+    """The host-recon I path (use_device_recon=False) runs: without a
+    QP map its I frame equals the device wavefront's, bytes and recon,
+    as the reference's two paths agree; a QP map on a configuration
+    without AQ or cuTree (no cu_qp_delta in the PPS) raises."""
+    cfg = EncoderConfig(width=96, height=64, qp=30, deblock=True, sao=True)
+    fr = _frames(1)[0]
+    dev = IntraEncoder(cfg, device="cpu").encode_frame(*fr)
+    host_enc = IntraEncoder(cfg, device="cpu")
+    host = host_enc.encode_frame(*fr, use_device_recon=False)
+    assert host_enc.host_i_seconds["recon"] > 0
+    assert host.bitstream == dev.bitstream
+    for k in ("y", "cb", "cr"):
+        np.testing.assert_array_equal(getattr(host.recon, k),
+                                      getattr(dev.recon, k))
+    with pytest.raises(ValueError, match="aq_mode"):
+        host_enc.encode_frame(*fr, qp_map=np.full((2, 3), 30, np.int32))
 
 
 def test_config_from_dict_round_trips_and_rejects_unknown_fields():

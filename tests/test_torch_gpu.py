@@ -6,7 +6,10 @@ current) and the B path's (one reference per plane), RDOQ and the
 lowpass DCT on the card against the CPU, and the card's stream against
 the CPU's at an odd me_range, in the fast/zerolatency,
 medium/zerolatency and placebo/zerolatency configurations, with noise
-reduction and with B frames (--preset fast).
+reduction and with B frames (--preset fast); the device lookahead on
+the card against the CPU, and the per-CTU-QP streams (encode_sequence
+with AQ 2 + cuTree, a B mini-GOP with AQ 2, the lossless and CTU-16 I
+frames of the host-recon path).
 This file imports neither JAX nor the reference package, so it runs on
 a machine with a GPU and no JAX:
 
@@ -519,6 +522,60 @@ def test_card_stream_equals_cpu_placebo_and_noise_reduction():
         card = encode_ippp(frames, "cuda", make_cfg(h, w), chunk=chunk)
         cpu = encode_ippp(frames, "cpu", make_cfg(h, w), chunk=chunk)
         assert [r.bitstream for r in card] == [r.bitstream for r in cpu]
+
+
+@pytest.mark.gpu
+def test_lookahead_on_card_equals_cpu():
+    """The device lookahead (AQ modes 1-3, the lowres search, cuTree's
+    ordered scatter) on four 64x96 frames: the card's offsets equal the
+    CPU's bit for bit (float64 transcendentals rounded once, exact
+    means, the scatter's fixed order), so the QP maps do too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from x265_tpu_torch.common.params import EncoderConfig
+    from x265_tpu_torch.enc.lookahead_gpu import lookahead_gop
+    frames = b_clip(4)
+    ys, cbs, crs = (np.stack([f[k] for f in frames]) for k in range(3))
+    for aq_mode in (1, 2, 3):
+        cfg = EncoderConfig(width=96, height=64, qp=32, aq_mode=aq_mode,
+                            cutree=True)
+        card = lookahead_gop(ys, cbs, crs, cfg, device="cuda")
+        cpu = lookahead_gop(ys, cbs, crs, cfg, device="cpu")
+        for a, b in zip(card, cpu):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_card_stream_equals_cpu_aq_cutree_and_host_i_path():
+    """encode_sequence under --preset medium --tune zerolatency with
+    AQ 2 + cuTree on the 72x128 clip (1 I + 5 P), a --preset fast B
+    mini-GOP with AQ 2 (flat maps), a lossless I frame and a CTU-16 I
+    frame: the same bytes and QP maps on the card as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    from chip_smoke import aq_cutree_config, encode_seq, small_clip
+    from x265_tpu_torch.common.params import EncoderConfig
+    from x265_tpu_torch.enc import IntraEncoder
+    frames = medium_clip(6)
+    card, cmaps = encode_seq(frames, "cuda", aq_cutree_config(72, 128))
+    cpu, pmaps = encode_seq(frames, "cpu", aq_cutree_config(72, 128))
+    assert [r.bitstream for r in card] == [r.bitstream for r in cpu]
+    for (a, _), (b, _) in zip(cmaps, pmaps):
+        np.testing.assert_array_equal(a, b)
+    cfg = fast_b_config(64, 96)
+    cfg.aq_mode = 2
+    card, _ = encode_random_access(b_clip(5), "cuda", cfg)
+    cfg = fast_b_config(64, 96)
+    cfg.aq_mode = 2
+    cpu, _ = encode_random_access(b_clip(5), "cpu", cfg)
+    assert [r.bitstream for r in card] == [r.bitstream for r in cpu]
+    fr = small_clip(1)[0]
+    for kw in (dict(lossless=True),
+               dict(ctu_size=16, keyint=1, bframes=0, deblock=True)):
+        out = [IntraEncoder(EncoderConfig(width=96, height=64, qp=32, **kw),
+                            device=d).encode_frame(*fr).bitstream
+               for d in ("cuda", "cpu")]
+        assert out[0] == out[1]
 
 
 def test_search_cpu_tensors_take_the_plain_version():

@@ -88,7 +88,51 @@ def test_inverse_transform_full_range():
 
 
 def test_per_block_qp_is_refused():
-    """dQP vectors are not ported: a tensor QP raises."""
-    with pytest.raises(NotImplementedError, match="item 15"):
-        port.quant_batch(torch.zeros((1, 4, 4), dtype=torch.int32), 4,
-                         torch.tensor([30]), 8)
+    """dQP: a (B,) QP vector is no longer refused. It quantises (with
+    deltaU), dequantises each block at its own QP, in the batch and the
+    lanes layouts, as the reference's vector forms do; a python-int QP
+    is the same as a flat vector; the numpy per-block forms of the
+    host-recon I path equal the reference's."""
+    rng = np.random.default_rng(8)
+    for n in SIZES:
+        c = rng.integers(-3000, 3000, (7, n, n)).astype(np.int32)
+        q = rng.integers(0, 52, 7).astype(np.int32)
+        lv = rng.integers(-300, 300, (7, n, n)).astype(np.int32)
+        cl = np.ascontiguousarray(c.transpose(1, 2, 0))
+        ll = np.ascontiguousarray(lv.transpose(1, 2, 0))
+        for intra in (True, False):
+            a, da = ref.quant_batch(jnp.asarray(c), n, jnp.asarray(q),
+                                    intra=intra, with_rem=True)
+            b, db = port.quant_batch(torch.from_numpy(c), n,
+                                     torch.from_numpy(q), intra=intra,
+                                     with_rem=True)
+            _eq(a, b)
+            _eq(da, db)
+            a, da = ref.quant_lanes(jnp.asarray(cl), n, jnp.asarray(q),
+                                    intra=intra, with_rem=True)
+            b, db = port.quant_lanes(torch.from_numpy(cl), n,
+                                     torch.from_numpy(q), intra=intra,
+                                     with_rem=True)
+            _eq(a, b)
+            _eq(da, db)
+        _eq(ref.dequant_batch(jnp.asarray(lv), n, jnp.asarray(q)),
+            port.dequant_batch(torch.from_numpy(lv), n, torch.from_numpy(q)))
+        _eq(ref.dequant_lanes(jnp.asarray(ll), n, jnp.asarray(q)),
+            port.dequant_lanes(torch.from_numpy(ll), n, torch.from_numpy(q)))
+        flat = torch.full((7,), 30, dtype=torch.int32)
+        np.testing.assert_array_equal(
+            port.quant_batch(torch.from_numpy(c), n, flat).numpy(),
+            port.quant_batch(torch.from_numpy(c), n, 30).numpy())
+        r = rng.integers(-255, 256, (n, n))
+        np.testing.assert_array_equal(ref.dct_np(r, dst=n == 4),
+                                      port.dct_np(r, dst=n == 4))
+        np.testing.assert_array_equal(ref.idct_np(lv[0]), port.idct_np(lv[0]))
+        co, du = ref.quant_np(ref.dct_np(r), 27, with_rem=True)
+        pco, pdu = port.quant_np(port.dct_np(r), 27, with_rem=True)
+        np.testing.assert_array_equal(co, pco)
+        np.testing.assert_array_equal(du, pdu)
+        for scan in range(3):
+            np.testing.assert_array_equal(ref.sign_hide_np(co, scan, du),
+                                          port.sign_hide_np(pco, scan, pdu))
+        np.testing.assert_array_equal(ref.dequant_np(co, 27),
+                                      port.dequant_np(pco, 27))

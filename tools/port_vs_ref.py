@@ -2,19 +2,22 @@
 """The GPU port against the JAX reference on the CPU, frame for frame:
 
     python3 tools/port_vs_ref.py [--size HxW]
-        [--legs bench,fast,medium,slow,placebo,fast_b]
+        [--legs bench,fast,medium,slow,placebo,fast_b,aq_cutree]
 
 Encodes the first frames of chip_smoke.py's bench clip (cropped to
 --size, default 1080x1920) with x265_tpu and with x265_tpu_torch, both on
-the CPU, in six legs: 1 I + 2 P in the bench configuration and under
+the CPU, in seven legs: 1 I + 2 P in the bench configuration and under
 --preset fast|medium|slow|placebo --tune zerolatency (slow: RDOQ and 4
-references; placebo: RDOQ, 5 references, merge 5, me_range 12), and 1 I
-+ one mini-GOP of 4 under --preset fast (B frames). For each frame it
-diffs the bytes, every syntax field and the 8x8 inter leaf cost
-inter_c8 of every P and B frame (read from both packages'
-_rd_depth_decision as they run). Prints one JSON line per leg
-(differing frames, bytes, syntax fields and inter_c8 cells, seconds)
-and exits 1 if any leg differs. Needs JAX: run it where the reference runs, not on
+references; placebo: RDOQ, 5 references, merge 5, me_range 12), 1 I +
+one mini-GOP of 4 under --preset fast (B frames), and encode_sequence
+over 1 I + 2 P under --preset medium --tune zerolatency with aq-mode 2
+and cuTree (aq_cutree: the device lookahead's per-CTU QP maps, the
+host-recon I frame, dQP P frames). For each frame it diffs the bytes,
+every syntax field and the 8x8 inter leaf cost inter_c8 of every P and
+B frame (read from both packages' _rd_depth_decision as they run), and
+in the aq_cutree leg the lookahead's QP maps entry by entry. Prints
+one JSON line per leg (differing frames, bytes, syntax fields, QP-map
+entries and inter_c8 cells, seconds) and exits 1 if any leg differs. Needs JAX: run it where the reference runs, not on
 the GPU machine. The reference traces its programs anew for each size
 and configuration (minutes each at 1080p, and tens of GiB of host
 memory).
@@ -36,7 +39,8 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-LEGS = ("bench", "fast", "medium", "slow", "placebo", "fast_b")
+LEGS = ("bench", "fast", "medium", "slow", "placebo", "fast_b",
+        "aq_cutree")
 
 
 def _config(leg, h, w, RefConfig):
@@ -44,9 +48,11 @@ def _config(leg, h, w, RefConfig):
     if leg == "bench":
         return RefConfig(width=w, height=h, qp=32, deblock=True, sao=False,
                          me_range=10)
-    cfg.apply_preset("fast" if leg == "fast_b" else leg)
+    cfg.apply_preset({"fast_b": "fast", "aq_cutree": "medium"}.get(leg, leg))
     if leg != "fast_b":
         cfg.apply_tune("zerolatency")
+    if leg == "aq_cutree":
+        cfg.aq_mode, cfg.cutree = 2, True
     return cfg
 
 
@@ -93,11 +99,16 @@ def run_leg(leg, h, w):
     from x265_tpu_torch.enc import IntraEncoder
     frames = chip_smoke.full_size_clip(5 if leg == "fast_b" else 3, (h, w))
     rcfg = _config(leg, h, w, RefConfig)
-    out = {}
+    out, maps = {}, {}
     for side, enc in (("ref", RefEncoder(rcfg)),
                       ("port", IntraEncoder(config_from_dict(
                           dataclasses.asdict(rcfg)), device="cpu"))):
         t0 = time.perf_counter()
+        if leg == "aq_cutree":
+            maps[side] = enc.lookahead_qp_maps(frames)
+            out[side] = (enc.encode_sequence(frames),
+                         time.perf_counter() - t0)
+            continue
         r0 = enc.encode_frame(*frames[0], qp=rcfg.qp - 3,
                               use_device_recon=True)
         enc.ref = r0.device_ref
@@ -116,7 +127,14 @@ def run_leg(leg, h, w):
         for k in sorted(set(fa) | set(fb)):
             if (k in fa) != (k in fb) or _differs(fa[k], fb[k]):
                 fields_differ.append(f"frame {i} ({a.ftype} POC {a.poc}) {k}")
-    return {"leg": leg, "size": f"{h}x{w}", "frames": len(ref),
+    qp_maps = {}
+    if maps:
+        qp_maps = {"qp_map_entries": int(maps["port"].size),
+                   "qp_map_entries_differ": int(
+                       (maps["ref"] != maps["port"]).sum()),
+                   "qp_map_min_max": [int(maps["port"].min()),
+                                      int(maps["port"].max())]}
+    return {"leg": leg, "size": f"{h}x{w}", "frames": len(ref), **qp_maps,
             "ref_bytes": sum(len(r.bitstream) for r in ref),
             "port_bytes": sum(len(r.bitstream) for r in port),
             "frames_differ": frames_differ,
@@ -157,6 +175,7 @@ def main() -> int:
                    seconds=time.perf_counter() - t0)
         ok &= not (rec["frames_differ"] or rec["fields_differ"] or
                    rec["inter_c8_cells_differ"] or
+                   rec.get("qp_map_entries_differ") or
                    len(c8_ref) != len(c8_port))
         print(json.dumps(rec), flush=True)
     return 0 if ok else 1

@@ -41,6 +41,7 @@ class FrameBSyntax:
     poc_refs: tuple = (0, 0)   # (L0 ref POC, L1 ref POC)
     max_merge: int = 2
     sao_params: tuple | None = None   # (p_y, p_cb, p_cr) per-CTU params
+    qp_map: np.ndarray | None = None  # per-CTU QP (dQP), None = uniform
 
 
 @dataclass

@@ -2,8 +2,9 @@
 on the GPU against two already reconstructed references.
 
 Counterpart of x265_tpu/enc/bframe_tpu.py (x265 analysis.cpp
-checkBidir2Nx2N) at CTU 32 without dQP; RDOQ as the reference's (it
-has no noise reduction and no lowpass DCT). The reference runs a
+checkBidir2Nx2N) at CTU 32, with per-CTU QP maps in the quantiser;
+RDOQ as the reference's (it has no noise reduction and no lowpass
+DCT). The reference runs a
 layer as one lax.scan with no carry; here it is a Python loop whose
 body does, all on the device, per frame: for each list, the quarter-res
 coarse search and the windowed ME of every block of every size
@@ -39,10 +40,10 @@ from ..ops.transforms import (dct_batch, dequant_batch, idct_batch,
                               quant_batch, rdoq_batch, sign_hide_batch)
 from .intra_analysis import edge_pad, up as _up
 from .intra_recon import DeviceRef
-from .pgop_gpu import (B_CTU64, SIZES, _blk_sse, _blocks_of,
+from .pgop_gpu import (B_CTU64, SIZES, _blk_sse, _blocks_of, _qp_vec_of,
                        _chroma_preds_windowed, _coarse_search_rolled,
                        _coeff_bits_est, _f32, _mvd_bits_est, _psy8_energy,
-                       _rd_depth_decision, check_pgop_config)
+                       _rd_depth_decision, check_pgop_config, ctu_grid)
 
 # the B path's bit model: the reference's default calibration, header
 # and split bits (bframe_tpu.py passes none of its own)
@@ -108,10 +109,12 @@ def _bs_maps_b_t(depth8, mvb, pf8, cf_y, ctu: int):
 def _bframe(refs0, refs1, oy, ocb, ocr, *, qp: int, qpc: int,
             bit_depth: int, real_h: int, real_w: int, ctu: int,
             deblock: bool, sao: bool, sign_hiding: bool, me_range: int,
-            psy_rd: float, rdoq: bool = False):
+            psy_rd: float, rdoq: bool = False, qp_ctu=None):
     """One B frame. refs0/refs1: (y, cb, cr) int32 planes of the L0 and
     L1 references at the scan size (CTU multiples, edge-padded); o*
-    int32 source planes at the scan size; rdoq: the RD quantiser.
+    int32 source planes at the scan size; rdoq: the RD quantiser;
+    qp_ctu: the (ncty, nctx) per-CTU QP map at the scan size (dQP: the
+    quantiser's QP per block; lambdas and the deblock stay at qp).
     Returns (depth8, mvb8 (n8y, n8x, 2, 2), pf8, cf_y, cf_cb, cf_cr, sao
     (3, ncty, nctx, 6) or None, rec_y, rec_cb, rec_cr), the recon
     cropped to the coded size."""
@@ -200,9 +203,10 @@ def _bframe(refs0, refs1, oy, ocb, ocr, *, qp: int, qpc: int,
     for n in SIZES:
         by, bx = h // n, w // n
         cn = n >> 1
-        rec_y, cf_y = one_plane(oy, n, qp, sel_pred[n])
-        rec_cb, cf_cb = one_plane(ocb, cn, qpc, sel_cpred[n][0])
-        rec_cr, cf_cr = one_plane(ocr, cn, qpc, sel_cpred[n][1])
+        qn, qcn = _qp_vec_of(qp, qpc, qp_ctu, by, bx, n, ctu)
+        rec_y, cf_y = one_plane(oy, n, qn, sel_pred[n])
+        rec_cb, cf_cb = one_plane(ocb, cn, qcn, sel_cpred[n][0])
+        rec_cr, cf_cr = one_plane(ocr, cn, qcn, sel_cpred[n][1])
         pl = planes[n] = (to_plane(rec_y, n, h, w), to_plane(cf_y, n, h, w),
                           to_plane(rec_cb, cn, h // 2, w // 2),
                           to_plane(cf_cb, cn, h // 2, w // 2),
@@ -287,12 +291,14 @@ def _planes_on(ref, dev, h: int, w: int):
 
 
 def encode_bframes_gpu(frames, ref0s, ref1s, cfg: EncoderConfig, qp: int,
-                       device=None, mesh=None):
+                       qp_maps=None, device=None, mesh=None):
     """Encode one layer of independent B frames on the device.
 
     frames: list of (y, cb, cr) source planes (coded size); ref0s /
     ref1s: per frame its L0 / L1 reference, a DeviceRef (used in place)
-    or a host ReconFrame (uploaded once). Returns (syns: FrameBSyntax
+    or a host ReconFrame (uploaded once); qp_maps: (F, ncty, nctx)
+    per-CTU QP maps (dQP), fitted to the scan's CTU grid, flat at qp
+    when cfg.dqp_enabled and none are given (syn.qp_map). Returns (syns: FrameBSyntax
     list, recons: host ReconFrame list, device_refs: DeviceRef list of
     the filtered recons, for the layers that predict from them)."""
     if mesh is not None:
@@ -327,9 +333,17 @@ def encode_bframes_gpu(frames, ref0s, ref1s, cfg: EncoderConfig, qp: int,
         return edge_pad(t.to(dev).to(torch.int32), php, pwp)
 
     qpc = chroma_qp(qp)
+    ctu = cfg.ctu_size
+    qmj = None
+    if cfg.dqp_enabled:
+        if qp_maps is None:
+            qp_maps = np.full((len(frames), hp // ctu, wp // ctu), qp,
+                              np.int32)
+        qmj = np.stack([ctu_grid(m, hp // ctu, wp // ctu) for m in qp_maps])
+        qmaps_t = torch.as_tensor(qmj, device=dev)
     syns, recons, drefs = [], [], []
     n8y, n8x = h // 8, w // 8
-    for fr, r0, r1 in zip(frames, ref0s, ref1s):
+    for i, (fr, r0, r1) in enumerate(zip(frames, ref0s, ref1s)):
         (depth8, mvb8, pf8, cf_y, cf_cb, cf_cr, sao_p, ry, rcb,
          rcr) = _bframe(
             scan_planes(r0), scan_planes(r1),
@@ -339,7 +353,8 @@ def encode_bframes_gpu(frames, ref0s, ref1s, cfg: EncoderConfig, qp: int,
             qp=int(qp), qpc=int(qpc), bit_depth=cfg.bit_depth, real_h=h,
             real_w=w, ctu=cfg.ctu_size, deblock=cfg.deblock, sao=cfg.sao,
             sign_hiding=cfg.sign_hiding, me_range=int(cfg.me_range),
-            psy_rd=float(cfg.psy_rd), rdoq=bool(cfg.rdoq))
+            psy_rd=float(cfg.psy_rd), rdoq=bool(cfg.rdoq),
+            qp_ctu=None if qmj is None else qmaps_t[i])
         syn = FrameBSyntax(
             depth8=depth8[:n8y, :n8x].cpu().numpy(),
             mv8=mvb8[:n8y, :n8x].cpu().numpy().astype(np.int32),
@@ -349,6 +364,8 @@ def encode_bframes_gpu(frames, ref0s, ref1s, cfg: EncoderConfig, qp: int,
             coeff_cr=cf_cr[:h // 2, :w // 2].cpu().numpy().astype(np.int32))
         if sao_p is not None:
             syn.sao_params = tuple(sao_p.cpu().numpy())
+        if qmj is not None:
+            syn.qp_map = qmj[i, :(h + ctu - 1) // ctu, :(w + ctu - 1) // ctu]
         syns.append(syn)
         dref = DeviceRef(*(p.to(torch.uint8).contiguous()
                            for p in (ry, rcb, rcr)))

@@ -1,14 +1,17 @@
 """Top-level encoder orchestration for the GPU port (the x265
 Encoder::encode analog).
 
-Counterpart of the device paths of x265_tpu/enc/encoder.py: an I frame
-through device analysis + the wavefront recon + deblock + SAO (or F of
-them through one batched wavefront, encode_gop), P chunks through
-enc/pgop_gpu.py (one or several references, TMVP, SAO, RDOQ, noise
-reduction, the lowpass DCT), and hierarchical mini-GOPs whose B layers
+Counterpart of x265_tpu/enc/encoder.py: an I frame through device
+analysis + the wavefront recon + deblock + SAO (or F of them through
+one batched wavefront, encode_gop), or through the host-recon I path
+(a per-CTU QP map, lossless, CTU 16), P chunks through enc/pgop_gpu.py
+(one or several references, TMVP, SAO, RDOQ, noise reduction, the
+lowpass DCT, per-CTU QP maps), hierarchical mini-GOPs whose B layers
 run through enc/bframe_gpu.py (RDOQ too; the I frame, as the
-reference's, uses none of the three); every frame entropy-coded by
-the native CABAC and packed into Annex-B NAL units. Reference pictures
+reference's, uses none of the three), and encode_sequence, whose QP
+maps come from the device lookahead (enc/lookahead_gpu.py, AQ and
+cuTree); every frame entropy-coded by the native CABAC and packed into
+Annex-B NAL units. Reference pictures
 stay on the device between frames (DeviceRef); the host keeps the DPB
 bookkeeping (references available since the IDR, their POCs, the
 mini-GOP's retention RPS), the collocated picture for TMVP and the
@@ -34,12 +37,16 @@ from ..common.params import B_SLICE, EncoderConfig, I_SLICE, P_SLICE
 from ..common.tables import lambda2_from_qp
 from ..device import resolve_device
 from ..native.entropy_native import encode_slice_native
-from ..ops.deblock import deblock_frame
+from ..ops.deblock import deblock_frame, deblock_frame_np
+from ..ops.sao import (apply_sao_component_np, choose_sao_chroma,
+                       choose_sao_params)
 from ..ops.sao_gpu import apply_sao_t, choose_sao_chroma_t, choose_sao_t
-from .intra_analysis import analyze_chroma_gop, analyze_intra_gop
-from .intra_recon import DeviceRef, ReconFrame
+from .intra_analysis import (analyze_chroma_gop, analyze_chroma_modes,
+                             analyze_intra_frame, analyze_intra_gop)
+from .intra_recon import DeviceRef, ReconFrame, reconstruct_intra_frame
 from .intra_recon_gpu import reconstruct_intra_gop_gpu
-from .pgop_gpu import check_pgop_config, collect_pgop_gpu, submit_pgop_gpu
+from .pgop_gpu import (check_pgop_config, collect_pgop_gpu, ctu_grid,
+                       submit_pgop_gpu)
 
 HOST_B_PATH = ("the host B path (enc/bi_frame.py, encode_frame_b, "
                "encode_bgop, encode_minigop(device=False)): not ported yet "
@@ -52,6 +59,31 @@ def pad_plane(p: np.ndarray, h: int, w: int) -> np.ndarray:
     if ph == 0 and pw == 0:
         return p
     return np.pad(p, ((0, ph), (0, pw)), mode="edge")
+
+
+def effective_qp_map(qp_map: np.ndarray, coeff_y: np.ndarray,
+                     coeff_cb: np.ndarray, coeff_cr: np.ndarray,
+                     ctu: int, slice_qp: int) -> np.ndarray:
+    """The per-CTU QP a decoder will infer: a CTU that codes no residual
+    never signals cu_qp_delta, so its QP is the predictor (the previous
+    QG in raster order; the slice QP at the start). The deblock's tc
+    and beta use it (clause 8.7.2.5.3)."""
+    ncty, nctx = qp_map.shape
+    eff = np.empty_like(qp_map)
+    prev = slice_qp
+    c = ctu // 2
+    for ty in range(ncty):
+        y0 = ty * ctu
+        for tx in range(nctx):
+            x0 = tx * ctu
+            any_c = (coeff_y[y0:y0 + ctu, x0:x0 + ctu].any()
+                     or coeff_cb[y0 // 2:y0 // 2 + c,
+                                 x0 // 2:x0 // 2 + c].any()
+                     or coeff_cr[y0 // 2:y0 // 2 + c,
+                                 x0 // 2:x0 // 2 + c].any())
+            prev = int(qp_map[ty, tx]) if any_c else prev
+            eff[ty, tx] = prev
+    return eff
 
 
 @dataclass
@@ -123,8 +155,9 @@ class FrameResult:
 
 
 class IntraEncoder:
-    """HEVC encoder, CQP, on one GPU (or the CPU when device="cpu"):
-    low-delay IPPP, or hierarchical-B mini-GOPs at CTU 32."""
+    """HEVC encoder, CQP with optional per-CTU QP (AQ, cuTree), on one
+    GPU (or the CPU when device="cpu"): low-delay IPPP, or
+    hierarchical-B mini-GOPs at CTU 32."""
 
     def __init__(self, cfg: EncoderConfig, device=None) -> None:
         cfg.validate()
@@ -139,6 +172,8 @@ class IntraEncoder:
         self.ref_avail = 1     # distinct pictures in the DPB since the IDR
         self._last_p_syn = None  # the previous P frame (TMVP collocated)
         self.stats = EncoderStats()
+        self.host_i_seconds = {}    # the last host-recon I frame's stages
+        self.lookahead_seconds = []  # one entry per lookahead_qp_maps
 
     def reconfigure(self, **updates) -> int:
         """x265_encoder_reconfig analog: latch parameter changes for the
@@ -186,18 +221,35 @@ class IntraEncoder:
                      qp_map: np.ndarray | None = None) -> FrameResult:
         """Encode one IDR frame: device analysis, wavefront recon,
         deblock, SAO; the post-filter recon is kept on the device
-        (FrameResult.device_ref) and downloaded only on need_recon."""
+        (FrameResult.device_ref) and downloaded only on need_recon.
+
+        The host-recon I path (use_device_recon=False) reconstructs on
+        the host instead, after the same analysis on the device; every
+        frame with a per-CTU QP map takes it (qp_map (ncty, nctx), or a
+        flat one when cfg.dqp_enabled: the PPS then signals
+        cu_qp_delta), as do lossless and CTU-16 frames. A map on the
+        lookahead's floor-16 grid is edge-extended to the CTU grid."""
         cfg = self.cfg
         t_start = time.perf_counter()
-        if not use_device_recon:
-            raise NotImplementedError(
-                "host-recon I path: not ported yet (ROADMAP queue 1 item 18)")
-        if qp_map is not None:
-            raise NotImplementedError(
-                "per-CTU QP maps: not ported yet (ROADMAP queue 1 item 15)")
         qp = cfg.qp if qp is None else qp
         self.last_src = (y, cb, cr)
+        if cfg.lossless:
+            # transquant bypass: loop filters and parity tricks are
+            # meaningless on exact residuals (x265 forces these off too)
+            cfg.deblock = cfg.sao = cfg.sign_hiding = cfg.rdoq = False
+            use_device_recon = False
+        if cfg.ctu_size == 16:
+            use_device_recon = False     # the wavefront runs CTU 32/64
+        if qp_map is None and cfg.dqp_enabled:
+            qp_map = np.full((cfg.ctu_rows, cfg.ctu_cols), qp, np.int32)
+        if qp_map is not None:
+            if not cfg.dqp_enabled:
+                raise ValueError("qp_map needs cfg.aq_mode or cfg.cutree on")
+            qp_map = ctu_grid(qp_map, cfg.ctu_rows, cfg.ctu_cols)
+            use_device_recon = False
         w, h = cfg.width_padded, cfg.height_padded
+        if not use_device_recon:
+            return self._encode_frame_host(y, cb, cr, qp, qp_map, t_start)
         yp = self._upload(pad_plane(np.asarray(y), h, w)[None])
         cbp = self._upload(pad_plane(np.asarray(cb), h // 2, w // 2)[None])
         crp = self._upload(pad_plane(np.asarray(cr), h // 2, w // 2)[None])
@@ -235,14 +287,85 @@ class IntraEncoder:
         device_ref = DeviceRef(*(p.to(torch.uint8).contiguous()
                                  for p in (dy, dcb, dcr)))
         recon = device_ref.to_recon() if need_recon else None
+        return self._emit_i_frame(syn, recon, device_ref, sao_params, qp,
+                                  None, t_start)
 
+    def _encode_frame_host(self, y, cb, cr, qp: int, qp_map, t_start
+                           ) -> FrameResult:
+        """The host-recon I path: device analysis, then the z-scan
+        reconstruction, deblock (each CTU at the QP a decoder infers
+        for it) and SAO on the host, in numpy. The recon is uploaded as
+        the next reference (FrameResult.device_ref). The seconds of each
+        stage are kept in self.host_i_seconds."""
+        cfg = self.cfg
+        w, h = cfg.width_padded, cfg.height_padded
+        yp = pad_plane(np.asarray(y), h, w)
+        cbp = pad_plane(np.asarray(cb), h // 2, w // 2)
+        crp = pad_plane(np.asarray(cr), h // 2, w // 2)
+        # CTU 64: intra CUs cap at 32 (analysis on the 32 grid, depths
+        # shifted one level down the 64 tree)
+        dshift = 1 if cfg.ctu_size == 64 else 0
+        depth8, mode8, nxn8, mode4 = analyze_intra_frame(
+            self._upload(yp), qp, min(cfg.ctu_size, 32), cfg.bit_depth,
+            intra_nxn=cfg.intra_nxn)
+        depth8 = depth8 + dshift
+        cmode8 = analyze_chroma_modes(self._upload(cbp), self._upload(crp),
+                                      depth8 - dshift, mode8, qp,
+                                      cfg.bit_depth)
+        t_an = time.perf_counter()
+        syn, recon = reconstruct_intra_frame(yp, cbp, crp, depth8, mode8,
+                                             cfg, qp, cmode8=cmode8,
+                                             nxn8=nxn8, mode4=mode4,
+                                             qp_map=qp_map)
+        t_rec = time.perf_counter()
+        if cfg.deblock:
+            dqp = qp
+            if qp_map is not None:
+                eff = effective_qp_map(qp_map, syn.coeff_y, syn.coeff_cb,
+                                       syn.coeff_cr, cfg.ctu_size, qp)
+                k = cfg.ctu_size // 8
+                dqp = np.repeat(np.repeat(eff, k, 0), k, 1)[:h // 8, :w // 8]
+            recon = ReconFrame(*deblock_frame_np(
+                recon.y, recon.cb, recon.cr, depth8, cfg.ctu_size, dqp,
+                cfg.bit_depth))
+        sao_params = None
+        if cfg.sao:
+            p_y = choose_sao_params(yp, recon.y, cfg.ctu_size, qp,
+                                    cfg.bit_depth)
+            p_cb, p_cr = choose_sao_chroma(cbp, recon.cb, crp, recon.cr,
+                                           cfg.ctu_size // 2, qp,
+                                           cfg.bit_depth)
+            recon = ReconFrame(
+                apply_sao_component_np(recon.y, p_y, cfg.ctu_size,
+                                       cfg.bit_depth),
+                apply_sao_component_np(recon.cb, p_cb, cfg.ctu_size // 2,
+                                       cfg.bit_depth),
+                apply_sao_component_np(recon.cr, p_cr, cfg.ctu_size // 2,
+                                       cfg.bit_depth))
+            sao_params = (p_y, p_cb, p_cr)
+        t_filt = time.perf_counter()
+        device_ref = DeviceRef(*(self._upload(p)
+                                 for p in (recon.y, recon.cb, recon.cr)))
+        res = self._emit_i_frame(syn, recon, device_ref, sao_params, qp,
+                                 qp_map, t_start)
+        self.host_i_seconds = {"analysis": t_an - t_start,
+                               "recon": t_rec - t_an,
+                               "filters": t_filt - t_rec,
+                               "cabac": time.perf_counter() - t_filt}
+        return res
+
+    def _emit_i_frame(self, syn, recon, device_ref, sao_params, qp: int,
+                      qp_map, t_start) -> FrameResult:
+        """Slice header + native I CABAC + NAL packaging of one IDR."""
+        cfg = self.cfg
+        w, h = cfg.width_padded, cfg.height_padded
         sw = write_slice_header(cfg, I_SLICE, idr=True, slice_qp=qp)
         payload, tail_val, tail_bits = encode_slice_native(
             2, syn.depth8, syn.coeff_y, syn.coeff_cb, syn.coeff_cr,
             w, h, cfg.log2_ctu, cfg.log2_min_cu, init_states(I_SLICE, qp),
             mode8=syn.mode8, sign_hiding=cfg.sign_hiding, cmode8=syn.cmode8,
             nxn8=syn.nxn8, mode4=syn.mode4, sao_params=sao_params,
-            slice_qp=qp)
+            qp_map=qp_map, slice_qp=qp, lossless=cfg.lossless)
         sw.write_bytes(payload)
         if tail_bits:
             sw.write(tail_val, tail_bits)
@@ -318,8 +441,8 @@ class IntraEncoder:
                 w, h, cfg.log2_ctu, cfg.log2_min_cu,
                 init_states(P_SLICE, qp), mv8=syn.mv8,
                 max_merge=syn.max_merge, sign_hiding=cfg.sign_hiding,
-                sao_params=syn.sao_params, slice_qp=qp, mode8=syn.mode8,
-                intra8=syn.intra8, tusplit8=syn.tusplit8,
+                sao_params=syn.sao_params, qp_map=syn.qp_map, slice_qp=qp,
+                mode8=syn.mode8, intra8=syn.intra8, tusplit8=syn.tusplit8,
                 rqt_inter=cfg.rqt_inter, ref8=syn.ref8,
                 num_ref=syn.num_ref, ref_pocs_l0=syn.ref_pocs, poc=syn.poc,
                 tmvp=cfg.tmvp, col=col)
@@ -346,42 +469,47 @@ class IntraEncoder:
                 np.stack([pad_plane(np.asarray(f[2]), h // 2, w // 2)
                           for f in frames]))
 
-    def _submit(self, frames, qp: int, need_recon: bool):
+    def _submit(self, frames, qp: int, need_recon: bool, qp_maps=None):
         if self.ref.y.ndim != 3:
             self.ref_avail = 1       # a single picture: 1 distinct ref
         wps, wvecs = self._pgop_weights(frames)
         pend = submit_pgop_gpu(*self._stack(frames), self.ref, self.cfg, qp,
                                need_recon=need_recon,
-                               me_range=self.cfg.me_range, weights=wvecs,
-                               device=self.device)
+                               me_range=self.cfg.me_range, qp_maps=qp_maps,
+                               weights=wvecs, device=self.device)
         self.ref = pend.last_ref
         self.last_src = frames[-1]
         return pend, wps
 
     def encode_pgop(self, frames, qp: int | None = None,
-                    need_recon: bool = True,
-                    poc_step: int = 1) -> list[FrameResult]:
+                    need_recon: bool = True, poc_step: int = 1,
+                    qp_maps: np.ndarray | None = None) -> list[FrameResult]:
         """One P chunk against the current reference: device pipeline,
-        then per-frame native CABAC."""
+        then per-frame native CABAC. qp_maps: (F, ncty, nctx) per-CTU
+        QP maps (dQP; cfg.dqp_enabled)."""
         assert self.ref is not None, "no reference: encode an I frame first"
         qp = self.cfg.qp if qp is None else qp
-        pend, wps = self._submit(frames, qp, need_recon)
+        pend, wps = self._submit(frames, qp, need_recon, qp_maps)
         syns, recons, _ = collect_pgop_gpu(pend)
         return self._emit_p_frames(syns, recons, qp, poc_step,
                                    weights_hdr=wps)
 
     def encode_pgop_pipelined(self, frames, qp: int | None = None,
                               chunk: int = 8, need_recon: bool = False,
+                              qp_maps: np.ndarray | None = None,
                               poc_step: int = 1) -> list[FrameResult]:
         """Pipelined IPPP: chunk k+1 is enqueued on the device before
         chunk k's host tail (CABAC + NAL) runs, so the host tail
-        overlaps device work. The reference chain stays on the device."""
+        overlaps device work. The reference chain stays on the device.
+        qp_maps: one per-CTU QP map per frame (dQP)."""
         assert self.ref is not None, "no reference: encode an I frame first"
         qp = self.cfg.qp if qp is None else qp
         results: list[FrameResult] = []
         pend_emit = None
         for s in range(0, len(frames), chunk):
-            pend, wps = self._submit(frames[s:s + chunk], qp, need_recon)
+            pend, wps = self._submit(
+                frames[s:s + chunk], qp, need_recon,
+                None if qp_maps is None else qp_maps[s:s + chunk])
             if pend_emit is not None:
                 results.extend(self._emit_p_frames(
                     *pend_emit[:2], qp, poc_step, weights_hdr=pend_emit[2]))
@@ -482,6 +610,9 @@ class IntraEncoder:
         """Slice header + native B CABAC + NAL packaging for one (already
         reconstructed) B frame."""
         cfg = self.cfg
+        qp_map = syn.qp_map if getattr(syn, "qp_map", None) is not None \
+            else (np.full((cfg.ctu_rows, cfg.ctu_cols), qp, np.int32)
+                  if cfg.dqp_enabled else None)
         sw = write_slice_header(
             cfg, B_SLICE, idr=False, poc=poc, slice_qp=qp,
             ref_delta_poc=poc - poc_refs[0],
@@ -494,7 +625,7 @@ class IntraEncoder:
             cfg.log2_min_cu, init_states(B_SLICE, qp), mvb=mvb, pf8=syn.pf8,
             poc=poc, poc_refs=poc_refs, max_merge=syn.max_merge,
             sign_hiding=cfg.sign_hiding, sao_params=syn.sao_params,
-            slice_qp=qp, rqt_inter=cfg.rqt_inter)
+            qp_map=qp_map, slice_qp=qp, rqt_inter=cfg.rqt_inter)
         sw.write_bytes(payload)
         if tail_bits:
             sw.write(tail_val, tail_bits)
@@ -603,3 +734,69 @@ class IntraEncoder:
         if len(frames) > 1:
             results.extend(self.encode_minigop(frames[1:], qp=qp))
         return results
+
+    # ------------------------------------------------------------------
+    # per-CTU QP from the device lookahead
+    # ------------------------------------------------------------------
+
+    def encode_sequence(self, frames) -> list[FrameResult]:
+        """IPPP with keyint + scene-cut frame types (the host
+        Lookahead.decide): each GOP is an IDR at QP qp - 3 and its P run
+        through the pipelined P chunks. With AQ or cuTree on
+        (cfg.dqp_enabled) the device lookahead gives every frame of the
+        GOP a per-CTU QP map; the I frame's is lowered by 3, and it
+        takes the host-recon I path."""
+        from .lookahead import Lookahead
+        cfg = self.cfg
+        la = Lookahead(cfg)
+        types = [la.decide(np.asarray(f[0])) for f in frames]
+        # CQP I-frame offset (x265 ipratio 1.4 ~ -3 QP): a finer
+        # keyframe pays back across every frame that references it
+        qp_i = max(cfg.qp - 3, 0)
+        results: list[FrameResult] = []
+        i = 0
+        while i < len(frames):
+            j = i + 1
+            while j < len(frames) and types[j] == "P":
+                j += 1
+            gop = frames[i:j]
+            qp_maps = self.lookahead_qp_maps(gop) if cfg.dqp_enabled \
+                else None
+            r = self.encode_frame(
+                *gop[0], qp=qp_i, use_device_recon=qp_maps is None,
+                qp_map=None if qp_maps is None
+                else np.clip(qp_maps[0] - 3, 0, 51))
+            self.ref = r.device_ref
+            self.poc = 0
+            results.append(r)
+            if len(gop) > 1:
+                results.extend(self.encode_pgop_pipelined(
+                    gop[1:], need_recon=True,
+                    qp_maps=None if qp_maps is None else qp_maps[1:]))
+            i = j
+        return results
+
+    def lookahead_qp_maps(self, gop_frames,
+                          base_qp: int | None = None) -> np.ndarray:
+        """The device lookahead over one GOP: AQ energy + cuTree ->
+        per-CTU QP maps (F, ncty, nctx) around base_qp, on the grid of
+        the coded size floored to 16 (a ragged frame's last CTU row or
+        column is filled by the encoder). Its seconds are appended to
+        self.lookahead_seconds."""
+        from .lookahead_gpu import lookahead_gop
+        t0 = time.perf_counter()
+        cfg = self.cfg
+        base_qp = cfg.qp if base_qp is None else base_qp
+        hp, wp = cfg.height_padded, cfg.width_padded
+        h16, w16 = hp // 16 * 16, wp // 16 * 16
+        ys = np.stack([pad_plane(np.asarray(g[0]), hp, wp)[:h16, :w16]
+                       for g in gop_frames])
+        cbs = np.stack([pad_plane(np.asarray(g[1]), hp // 2, wp // 2)
+                        [:h16 // 2, :w16 // 2] for g in gop_frames])
+        crs = np.stack([pad_plane(np.asarray(g[2]), hp // 2, wp // 2)
+                        [:h16 // 2, :w16 // 2] for g in gop_frames])
+        off_ctu = lookahead_gop(ys, cbs, crs, cfg, qcomp=cfg.qcomp,
+                                device=self.device)[0]
+        maps = np.clip(np.round(base_qp + off_ctu), 0, 51).astype(np.int32)
+        self.lookahead_seconds.append(time.perf_counter() - t0)
+        return maps

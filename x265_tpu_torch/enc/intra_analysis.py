@@ -328,3 +328,54 @@ def analyze_chroma_gop(orig_cb: torch.Tensor, orig_cr: torch.Tensor,
                       edge_pad(orig_cr[f].to(torch.int32), hp, wp),
                       depth8[f], mode8[f], lam, bit_depth)
         for f in range(nf)])
+
+
+def analyze_intra_frame(orig_y: torch.Tensor, qp: int, ctu_size: int = 32,
+                        bit_depth: int = 8, intra_nxn: bool = False):
+    """The analysis of the host-recon I frame: analyze_intra_gop on one
+    (H, W) plane on the device (ctu_size <= 32; CTU 64 analyses on the
+    32 grid). Returns host arrays (depth8, mode8, nxn8, mode4)."""
+    d8, m8, nxn8, m4 = analyze_intra_gop(orig_y[None], qp, ctu_size,
+                                         bit_depth, intra_nxn=intra_nxn)
+    return (d8[0].cpu().numpy().astype(np.uint8),
+            m8[0].cpu().numpy().astype(np.uint8), nxn8[0].cpu().numpy(),
+            m4[0].cpu().numpy().astype(np.uint8))
+
+
+def analyze_chroma_modes(orig_cb: torch.Tensor, orig_cr: torch.Tensor,
+                         depth8: np.ndarray, mode8: np.ndarray, qp: int,
+                         bit_depth: int = 8) -> np.ndarray:
+    """Chroma intra mode decision of the host-recon I frame (x265
+    estIntraPredChromaQT analog): the joint cb + cr SATD of all 35 modes
+    per CU size on the device, each size on planes edge-padded to its
+    own block multiple; then on the host, in float64 with the python
+    lambda, DM against the 4-entry candidate list (the first of equal
+    candidates, DM on a tie). orig_cb/cr (H/2, W/2) on the device.
+    Returns cmode8 (n8y, n8x) uint8 of the chroma prediction modes."""
+    h2, w2 = orig_cb.shape
+    n8y, n8x = depth8.shape
+    lam = lambda_from_qp(qp)
+    cost8 = []
+    for n in (32, 16, 8):             # depth 0, 1, 2
+        cn = n // 2
+        hp = (h2 + cn - 1) // cn * cn
+        wp = (w2 + cn - 1) // cn * cn
+        c = _chroma_costs(edge_pad(orig_cb.to(torch.int32), hp, wp),
+                          edge_pad(orig_cr.to(torch.int32), hp, wp), cn,
+                          bit_depth).cpu().numpy()
+        c = c.reshape(hp // cn, wp // cn, 35)
+        s = n // 8
+        cost8.append(np.repeat(np.repeat(c, s, 0), s, 1)[:n8y, :n8x])
+    allc = np.stack(cost8)                        # (3, n8y, n8x, 35)
+    c8 = np.take_along_axis(
+        allc, depth8[None, ..., None].astype(np.int64), 0)[0]
+    m = mode8.astype(np.int64)
+    cand = np.broadcast_to(CHROMA_CAND, (n8y, n8x, 4)).copy() \
+        .astype(np.int64)
+    cand = np.where(cand == m[..., None], 34, cand)
+    dm_cost = np.take_along_axis(c8, m[..., None], -1)[..., 0] + lam * 1
+    cand_cost = np.take_along_axis(c8, cand, -1) + lam * 3
+    bj = cand_cost.argmin(-1)
+    best_cc = np.take_along_axis(cand_cost, bj[..., None], -1)[..., 0]
+    best_cm = np.take_along_axis(cand, bj[..., None], -1)[..., 0]
+    return np.where(dm_cost <= best_cc, m, best_cm).astype(np.uint8)

@@ -424,8 +424,9 @@ def reconstruct_intra_gop_gpu(orig_y: torch.Tensor, orig_cb: torch.Tensor,
     skips CU steps no lane takes. Both give the same result."""
     if cfg.ctu_size not in (32, 64):
         raise NotImplementedError(
-            "CTU 16 (all-intra, the host-recon I path): not ported yet "
-            "(ROADMAP queue 1 item 18)")
+            "CTU 16: the device wavefront runs CTU 32 and 64; a CTU-16 "
+            "I frame takes the host-recon I path (IntraEncoder."
+            "encode_frame)")
     ctu64 = cfg.ctu_size == 64
     nf, h, w = orig_y.shape
     dev = orig_y.device

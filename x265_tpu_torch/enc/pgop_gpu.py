@@ -1,11 +1,13 @@
 """P-frame device pipeline: an IPPP chunk frame after frame on the GPU.
 
-Counterpart of x265_tpu/enc/pgop_tpu.py for CTU 32 and 64 without dQP:
-one or several references (multi-reference selection from the coarse
-pass), deblock, SAO, sign hiding, RQT depth 1, weightp, psy-rd,
+Counterpart of x265_tpu/enc/pgop_tpu.py for CTU 32 and 64: one or
+several references (multi-reference selection from the coarse pass),
+deblock, SAO, sign hiding, RQT depth 1, weightp, psy-rd,
 intra-in-inter, RDOQ, noise reduction (its state carried from frame to
-frame within a submit) and the lowpass DCT; at CTU 64 a depth-0 64x64
-CU is built from the 32-level content where its four 32-blocks agree.
+frame within a submit), the lowpass DCT and per-CTU QP maps (dQP:
+every block quantised at its CTU's QP, the deblock at the QP a decoder
+infers per CTU); at CTU 64 a depth-0 64x64 CU is built from the
+32-level content where its four 32-blocks agree.
 The reference expresses the chain as one lax.scan; here it is a Python
 loop whose body does, all on the device: coarse quarter-res search (one
 per reference) -> windowed ME for every block of every size
@@ -35,7 +37,8 @@ import torch
 from ..bitstream.syntax import FramePSyntax
 from ..common.bit_calib import calib_for_qp
 from ..common.params import EncoderConfig
-from ..common.tables import chroma_qp, lambda_from_qp, lambda2_from_qp
+from ..common.tables import (CHROMA_QP_LUT, chroma_qp, lambda_from_qp,
+                             lambda2_from_qp)
 from ..device import resolve_device
 from ..ops.deblock import deblock_chroma_t, deblock_luma_t
 from ..ops.fma import fma32
@@ -482,12 +485,57 @@ def _nr_update(state, accum: dict) -> tuple:
     return tuple(new_s), tuple(new_c)
 
 
+@lru_cache(maxsize=None)
+def _chroma_lut(device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(CHROMA_QP_LUT, device=device)
+
+
+def _qp_vec_of(qp, qpc, qp_ctu, by: int, bx: int, nn: int, ctu: int):
+    """Per-block (luma QP, chroma QP) of an nn-block grid of by x bx
+    blocks: the scalars without a per-CTU map (qp_ctu None), else each
+    block's covering CTU's QP as (by * bx,) raster vectors, the chroma
+    QP through the 4:2:0 table clipped at 57."""
+    if qp_ctu is None:
+        return qp, qpc
+    dev = qp_ctu.device
+    iy = torch.arange(by, device=dev) * nn // ctu
+    ix = torch.arange(bx, device=dev) * nn // ctu
+    q = qp_ctu[iy[:, None], ix[None, :]].reshape(-1)
+    return q, _chroma_lut(dev)[torch.clamp(q, 0, 57).long()]
+
+
+def _effective_qp8(qp_ctu, cf_y, cf_cb, cf_cr, qp: int, ctu: int, rh: int,
+                   rw: int):
+    """The per-8x8-cell QP a decoder infers for the deblock, over the
+    coded (rh, rw) crop: a CTU that codes no residual keeps the
+    predictor (the last CTU before it in raster order that codes one;
+    the slice QP before the first). Only the coded region's
+    coefficients reach the stream, so the padded edge's do not count."""
+    ncty, nctx = qp_ctu.shape
+    hp, wp = cf_y.shape
+
+    def any_ctu(cf, c, rhh, rww):
+        cf = cf.clone()
+        cf[rhh:] = 0
+        cf[:, rww:] = 0
+        return (cf.reshape(ncty, c, nctx, c) != 0).any(3).any(1)
+
+    cbf = any_ctu(cf_y, ctu, rh, rw) |         any_ctu(cf_cb, ctu // 2, rh // 2, rw // 2) |         any_ctu(cf_cr, ctu // 2, rh // 2, rw // 2)
+    flat_q = qp_ctu.reshape(-1)
+    iota = torch.arange(flat_q.shape[0], dtype=torch.int64,
+                        device=qp_ctu.device)
+    last = torch.cummax(torch.where(cbf.reshape(-1), iota, -1), 0).values
+    eff = torch.where(last >= 0, flat_q[torch.clamp(last, min=0)],
+                      qp).reshape(ncty, nctx).to(torch.int32)
+    return _up(eff, ctu // 8)[:rh // 8, :rw // 8]
+
+
 def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
                   sign_hiding, real_h, real_w, preds, cpreds, refs_grid,
                   nrefs: int, psy_rd=0.0, rqt=False, alt8_cost=None,
                   ctu: int = 32, costs: dict | None = None,
                   rdoq: bool = False, lowpass: bool = False,
-                  nr_offsets: dict | None = None):
+                  nr_offsets: dict | None = None, qp_ctu=None):
     """MC + residual coding at EVERY CU size with that size's own MV
     field (predictions from the windowed ME), leaf-RDO depth decision
     from the true recon SSE + estimated bits, then compose by depth.
@@ -507,7 +555,9 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
     N >= 8 (both also in the TU-split candidate); nr_offsets (per
     NR_CATS key) denoises the coefficients of the unsplit TUs and makes
     the return a pair (outputs, NR accumulators {key: (sums, blocks)}),
-    as the reference's."""
+    as the reference's. qp_ctu, an (ncty, nctx) int32 per-CTU QP map
+    (dQP), quantises every block at its covering CTU's QP; the lambdas
+    stay the slice QP's."""
     dev = oy.device
     calib = calib_for_qp(qp)
     cal3 = calib[:3]
@@ -558,13 +608,14 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
         by, bx = h // n, w // n
         grid = mvs[n].reshape(by, bx, 2)
         cn = n >> 1
+        qn, qcn = _qp_vec_of(qp, qpc, qp_ctu, by, bx, n, ctu)
 
         def lan(p):
             return p.permute(1, 2, 0)
 
-        rec_y, cf_y = one_plane(oy, n, qp, lan(preds[n]), "y")
-        rec_cb, cf_cb = one_plane(ocb, cn, qpc, lan(cpreds[n][0]), "c")
-        rec_cr, cf_cr = one_plane(ocr, cn, qpc, lan(cpreds[n][1]), "c")
+        rec_y, cf_y = one_plane(oy, n, qn, lan(preds[n]), "y")
+        rec_cb, cf_cb = one_plane(ocb, cn, qcn, lan(cpreds[n][0]), "c")
+        rec_cr, cf_cr = one_plane(ocr, cn, qcn, lan(cpreds[n][1]), "c")
         planes[n] = (_to_plane(rec_y, n, h, w), _to_plane(cf_y, n, h, w),
                      _to_plane(rec_cb, cn, h // 2, w // 2),
                      _to_plane(cf_cb, cn, h // 2, w // 2),
@@ -584,13 +635,15 @@ def _mc_recon_all(oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth,
         # chroma TUs on the SAME prediction), chosen per CU by RD
         if rqt and n >= 16:
             n2, n4 = n >> 1, n >> 2
+            qn2, qcn2 = _qp_vec_of(qp, qpc, qp_ctu, h // n2, w // n2, n2,
+                                   ctu)
             py_pl = _to_plane(lan(preds[n]), n, h, w)
             pcb_pl = _to_plane(lan(cpreds[n][0]), cn, h // 2, w // 2)
             pcr_pl = _to_plane(lan(cpreds[n][1]), cn, h // 2, w // 2)
-            ry_s, cfy_s = one_plane(oy, n2, qp, _lanes_of_plane(py_pl, n2))
-            rcb_s, cfcb_s = one_plane(ocb, n4, qpc,
+            ry_s, cfy_s = one_plane(oy, n2, qn2, _lanes_of_plane(py_pl, n2))
+            rcb_s, cfcb_s = one_plane(ocb, n4, qcn2,
                                       _lanes_of_plane(pcb_pl, n4))
-            rcr_s, cfcr_s = one_plane(ocr, n4, qpc,
+            rcr_s, cfcr_s = one_plane(ocr, n4, qcn2,
                                       _lanes_of_plane(pcr_pl, n4))
             pl_s = (_to_plane(ry_s, n2, h, w), _to_plane(cfy_s, n2, h, w),
                     _to_plane(rcb_s, n4, h // 2, w // 2),
@@ -1077,14 +1130,15 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
                 deblock: bool, sao: bool, sign_hiding: bool, me_range: int,
                 intra_ii: bool, psy_rd: float, weight_denom: int, rqt: bool,
                 nrefs: int, rdoq: bool = False, lowpass: bool = False,
-                nr: int = 0, nr_state=None):
+                nr: int = 0, nr_state=None, qp_ctu=None):
     """One P frame. refs: (ry, rcb, rcr) (nrefs, ...) int32 stacks of
     the nrefs most recent reference pictures at the scan size
     (CTU multiples, edge-padded), slot 0 the newest; oy/ocb/ocr int32
     source planes at the scan size; wvec: (6,) int32 weights or None.
     rdoq, lowpass: the RD quantiser and the lowpass DCT; nr: the noise
     reduction strength, with nr_state the carried (sums, counts)
-    (_nr_state_init).
+    (_nr_state_init); qp_ctu: the (ncty, nctx) per-CTU QP map at the
+    scan size (dQP) or None.
     Returns (fields, next references, next NR state or None): fields =
     (depth8, mv8, cf_y, cf_cb, cf_cr, intra8, imode8, tusplit8, ref8,
     sao, rec_y, rec_cb, rec_cr), sao (3, ncty, nctx, 6) int32 or
@@ -1135,9 +1189,11 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
 
     # --- intra candidate estimate (orig refs) so intra competes in the
     # depth decision; a 1.25x margin for its optimism
+    # the 8x8 intra candidates quantise at their CTU's QP
+    qv8, qcv8 = _qp_vec_of(qp, qpc, qp_ctu, h // 8, w // 8, 8, ctu)
     if intra_ii:
         imode_est, icost8 = _intra8_est(
-            oy, ocb, ocr, lam_i, lam2, qp, qpc, ctu, rh, rw, bit_depth,
+            oy, ocb, ocr, lam_i, lam2, qv8, qcv8, ctu, rh, rw, bit_depth,
             sign_hiding, calib, psy_rd=psy_rd)
         icost8_m = icost8 * _f32(1.25, dev)
     else:
@@ -1148,7 +1204,8 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
         preds=preds, cpreds=cpreds, refs_grid=refs_grid, nrefs=nrefs,
         psy_rd=psy_rd, rqt=rqt, alt8_cost=icost8_m, ctu=ctu, rdoq=rdoq,
         lowpass=lowpass,
-        nr_offsets=_nr_offsets(nr_state, nr) if nr else None)
+        nr_offsets=_nr_offsets(nr_state, nr) if nr else None,
+        qp_ctu=qp_ctu)
     if nr:
         res, accum = res
         nr_state = _nr_update(nr_state, accum)
@@ -1159,7 +1216,7 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
         (rec_y, rec_cb, rec_cr, cf_y, cf_cb, cf_cr, intra8,
          imode8) = _intra_in_inter(
             oy, ocb, ocr, rec_y, rec_cb, rec_cr, cf_y, cf_cb, cf_cr,
-            depth8, intra_pref, imode_est, qp, qpc, ctu, rh, rw, bit_depth,
+            depth8, intra_pref, imode_est, qv8, qcv8, ctu, rh, rw, bit_depth,
             sign_hiding, lam2=lam2, inter_c8=inter_c8, calib=calib,
             psy_rd=psy_rd)
     else:
@@ -1177,13 +1234,16 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
             cf_y[:rh, :rw], ctu,
             intra8=intra8[:rh // 8, :rw // 8] if intra_ii else None,
             tusplit8=tusplit8[:rh // 8, :rw // 8] if rqt else None)
-        ry_c = deblock_luma_t(ry_c.contiguous(), vbs, hbs, qp, bit_depth)
+        qp8 = None if qp_ctu is None else _effective_qp8(
+            qp_ctu, cf_y, cf_cb, cf_cr, qp, ctu, rh, rw)
+        ry_c = deblock_luma_t(ry_c.contiguous(), vbs, hbs, qp, bit_depth,
+                              qp8=qp8)
         if intra_ii:
             # chroma filters only bs == 2 edges (intra boundaries)
             rcb_c = deblock_chroma_t(rcb_c.contiguous(), vbs, hbs, qp,
-                                     bit_depth)
+                                     bit_depth, qp8=qp8)
             rcr_c = deblock_chroma_t(rcr_c.contiguous(), vbs, hbs, qp,
-                                     bit_depth)
+                                     bit_depth, qp8=qp8)
     sao_p = None
     if sao:
         p_y = choose_sao_t(oy[:rh, :rw], ry_c, ctu, qp, bit_depth, lam2,
@@ -1222,15 +1282,27 @@ B_CTU64 = ("B frames at CTU 64: waits for a reference whose CTU-64 B "
            "streams decode (ROADMAP queue 1 item 28)")
 
 
+def ctu_grid(qp_map: np.ndarray, ry: int, rx: int) -> np.ndarray:
+    """A per-CTU QP map clipped to 0..51 and fitted to an (ry, rx) CTU
+    grid: the lookahead's maps come on the floor-16 grid, so a ragged
+    frame (and the scan's padding) repeats the last row and column."""
+    qp_map = np.clip(np.asarray(qp_map, np.int32), 0, 51)
+    if qp_map.shape == (ry, rx):
+        return qp_map
+    full = np.empty((ry, rx), np.int32)
+    sy = min(qp_map.shape[0], ry)
+    sx = min(qp_map.shape[1], rx)
+    full[:sy, :sx] = qp_map[:sy, :sx]
+    full[sy:, :sx] = full[sy - 1:sy, :sx]
+    full[:, sx:] = full[:, sx - 1:sx]
+    return full
+
+
 def check_pgop_config(cfg: EncoderConfig) -> None:
     """Raise for every option the P-chunk path of this package does not
     implement (NotImplementedError naming its ROADMAP queue item)."""
     unported = [
-        (cfg.ctu_size == 16, "CTU 16 (all-intra, the host-recon I path)",
-         18),
-        (cfg.dqp_enabled, "dQP / AQ / cuTree", 15),
         (cfg.wpp, "WPP", 17),
-        (cfg.lossless, "lossless", 18),
         (cfg.bit_depth != 8, "10-bit", 19),
         (cfg.hash_sei, "picture-hash SEI", 24),
     ]
@@ -1259,11 +1331,12 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
     cfg.num_refs most recent pictures (a single picture is broadcast to
     the R slots: the duplicates are never selected). weights: (F, 6)
     int32 weightp vectors. The final reference (PgopPending.last_ref,
-    the DeviceRef stack) can chain the next submit at once."""
+    the DeviceRef stack) can chain the next submit at once. qp_maps:
+    (F, ncty, nctx) per-CTU QP maps (dQP), clipped to 0..51 and
+    edge-extended to the scan's CTU grid; flat at qp when
+    cfg.dqp_enabled and none are given. Each frame's coded map is
+    syn.qp_map."""
     check_pgop_config(cfg)
-    if qp_maps is not None:
-        raise NotImplementedError(
-            "per-CTU QP maps: not ported yet (ROADMAP queue 1 item 15)")
     if seeds16 is not None:
         raise NotImplementedError(
             "analysis-reuse seeds: not ported yet (ROADMAP queue 1 item 24)")
@@ -1312,6 +1385,18 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
                              device=dev)
     else:
         wv = None
+    ctu = cfg.ctu_size
+    ncty_p, nctx_p = hp // ctu, wp // ctu
+    if qp_maps is None and cfg.dqp_enabled:
+        # the PPS signals cu_qp_delta: every slice codes (zero) deltas
+        qp_maps = np.full((f, (h + ctu - 1) // ctu, (w + ctu - 1) // ctu),
+                          qp, np.int32)
+    qmj = None
+    if qp_maps is not None:
+        # maps on the lookahead's floor-16 grid, or on the coded CTU
+        # grid, are edge-extended to the scan's padded CTU grid
+        qmj = np.stack([ctu_grid(m, ncty_p, nctx_p) for m in qp_maps])
+        qmaps_t = torch.as_tensor(qmj, device=dev)
     outs = []
     # the NR state starts at zero on every submit, as the reference's
     # scan starts its carry
@@ -1326,14 +1411,14 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
             intra_ii=cfg.intra_in_inter, psy_rd=float(cfg.psy_rd),
             weight_denom=6, rqt=bool(cfg.rqt_inter), nrefs=nrefs,
             rdoq=bool(cfg.rdoq), lowpass=bool(cfg.lowpass_dct), nr=nr,
-            nr_state=nr_state)
+            nr_state=nr_state, qp_ctu=None if qmj is None else qmaps_t[i])
         outs.append(fields)
     last_ref = DeviceRef(*(p[..., :hh, :ww].to(torch.uint8).contiguous()
                            for p, hh, ww in ((cur[0], h, w),
                                              (cur[1], h // 2, w // 2),
                                              (cur[2], h // 2, w // 2))))
     return PgopPending(outs=outs, f=f, h=h, w=w, need_recon=need_recon,
-                       last_ref=last_ref)
+                       last_ref=last_ref, qmj=qmj, ctu=ctu)
 
 
 def collect_pgop_gpu(p: PgopPending):
@@ -1344,7 +1429,7 @@ def collect_pgop_gpu(p: PgopPending):
     h, w = p.h, p.w
     n8y, n8x = h // 8, w // 8
     syns, recons = [], []
-    for fields in p.outs:
+    for i, fields in enumerate(p.outs):
         (depth8, mv8, cf_y, cf_cb, cf_cr, intra8, imode8, tusplit8, ref8,
          sao_p, ry, rcb, rcr) = fields
         small = [t[:n8y, :n8x].cpu().numpy()
@@ -1360,6 +1445,9 @@ def collect_pgop_gpu(p: PgopPending):
             ref8=np.ascontiguousarray(ref8_np) if ref8_np.any() else None)
         if sao_p is not None:
             syn.sao_params = tuple(sao_p.cpu().numpy())
+        if p.qmj is not None:
+            syn.qp_map = p.qmj[i, :(h + p.ctu - 1) // p.ctu,
+                               :(w + p.ctu - 1) // p.ctu]
         if intra8_np.any():
             syn.intra8 = intra8_np != 0
             syn.mode8 = imode8_np

@@ -166,12 +166,14 @@ def encode_slice_native(slice_type: int, depth8: np.ndarray,
                         sao_params=None,
                         nxn8: np.ndarray | None = None,
                         mode4: np.ndarray | None = None,
+                        qp_map: np.ndarray | None = None,
                         slice_qp: int = 26,
                         intra8: np.ndarray | None = None,
                         mvb: np.ndarray | None = None,
                         pf8: np.ndarray | None = None,
                         poc: int = 0,
                         poc_refs: tuple[int, int] = (0, 0),
+                        lossless: bool = False,
                         tusplit8: np.ndarray | None = None,
                         rqt_inter: bool = False,
                         ref8: np.ndarray | None = None,
@@ -183,8 +185,10 @@ def encode_slice_native(slice_type: int, depth8: np.ndarray,
     """Native slice encoder for I (mode8, NxN via nxn8/mode4), P
     (mv8, intra8, tusplit8) and B slices (mvb (n8y, n8x, 4) the L0 and
     L1 MVs, pf8 the prediction flags, poc and poc_refs = (L0 POC, L1
-    POC) for the AMVP scaling) without dQP. SAO: sao_params =
-    (p_y, p_cb, p_cr) per-CTU parameters. Multi-reference P: ref8,
+    POC) for the AMVP scaling). dQP: qp_map, the per-CTU QP (ncty,
+    nctx), whose deltas against slice_qp are coded per CTU; lossless:
+    cu_transquant_bypass on every CU. SAO: sao_params = (p_y, p_cb,
+    p_cr) per-CTU parameters. Multi-reference P: ref8,
     num_ref, ref_pocs_l0; TMVP: tmvp and col = (col_mv, col_ref8,
     col_inter8, col_poc, col_ref_pocs). Returns (payload_bytes,
     tail_value, tail_nbits)."""
@@ -210,6 +214,7 @@ def encode_slice_native(slice_type: int, depth8: np.ndarray,
     ts8 = arr(tusplit8, np.uint8)
     mvbc = arr(mvb, np.int32)
     pfc = arr(pf8, np.uint8)
+    qm = arr(qp_map, np.int32)
     saos = [None] * 3 if sao_params is None else \
         [arr(p, np.int32) for p in sao_params]
     cap = w * h * 4 + 4096
@@ -221,10 +226,10 @@ def encode_slice_native(slice_type: int, depth8: np.ndarray,
     n = lib.encode_slice(
         slice_type, ptr(d8), ptr(m8), ptr(mv), ptr(mvbc), ptr(pfc),
         poc, poc_refs[0], poc_refs[1], max_merge,
-        1 if sign_hiding else 0, 0, ptr(cm8),
+        1 if sign_hiding else 0, 1 if lossless else 0, ptr(cm8),
         ptr(cy), ptr(cb), ptr(cr), *(ptr(p) for p in saos),
         ptr(nx8), ptr(m4), ptr(i8), ptr(ts8),
-        1 if rqt_inter else 0, None, slice_qp,
+        1 if rqt_inter else 0, ptr(qm), slice_qp,
         w, h, log2_ctu, log2_min_cu, ptr(st), len(st), pext,
         ptr(out), cap, ctypes.byref(tail_val), ctypes.byref(tail_bits))
     if n < 0:

@@ -1,7 +1,9 @@
 """HEVC integer transforms + quantization, batched over TUs.
 
-Counterpart of x265_tpu/ops/transforms.py (lanes and batch forms; the
-numpy oracles stay in the reference package as the second truth).
+Counterpart of x265_tpu/ops/transforms.py: the lanes and batch forms
+on the device, with a scalar QP or a (B,) per-block QP vector (dQP), and
+the per-block numpy forms of the host-recon I path (dct_np, idct_np,
+quant_np, dequant_np, sign_hide_np), copies of the reference's.
 Integer exactness: the matrix products run in float64, where every
 product and partial sum (at most 32 x 90 x 2^16 < 2^28) is an exact
 integer, and are cast back to int32. The reference splits operands into
@@ -51,14 +53,29 @@ def _exact_matmul_tx(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(t, x.to(torch.float64)).to(torch.int32)
 
 
-def _qp_parts(qp: int, log2n: int, bit_depth: int):
-    if not isinstance(qp, (int, np.integer)):
-        raise NotImplementedError(
-            "per-block QP vectors (dQP/AQ): ROADMAP queue 1 item 15")
-    qp = int(qp)
+@lru_cache(maxsize=None)
+def _scale_tables(device: torch.device):
+    return (torch.as_tensor(QUANT_SCALES, dtype=torch.int32, device=device),
+            torch.as_tensor(INV_QUANT_SCALES, dtype=torch.int32,
+                            device=device))
+
+
+def _qp_parts(qp, log2n: int, bit_depth: int, batch: bool, device):
+    """(per, rem, qbits, fwd scale, inverse scale) of a python-int QP,
+    or of a (B,) QP vector broadcast over the blocks: along the last
+    axis of (N, N, B) lanes, the first of (B, N, N) batches."""
+    if isinstance(qp, (int, np.integer)):
+        qp = int(qp)
+        per, rem = qp // 6, qp % 6
+        return (per, rem, QUANT_SHIFT + per + transform_shift(log2n,
+                                                             bit_depth),
+                int(QUANT_SCALES[rem]), int(INV_QUANT_SCALES[rem]))
+    qp = qp.to(device=device, dtype=torch.int32)
+    qp = qp[:, None, None] if batch else qp[None, None, :]
     per, rem = qp // 6, qp % 6
-    qbits = QUANT_SHIFT + per + transform_shift(log2n, bit_depth)
-    return per, rem, qbits
+    fwd, inv = _scale_tables(device)
+    return (per, rem, QUANT_SHIFT + per + transform_shift(log2n, bit_depth),
+            fwd[rem.long()], inv[rem.long()])
 
 
 # =============================================================================
@@ -105,11 +122,11 @@ def idct_lanes(coef: torch.Tensor, size: int, bit_depth: int = 8,
     return r.transpose(0, 1)                                # (k, j, B)
 
 
-def _quant(coef: torch.Tensor, log2n: int, qp: int, bit_depth: int,
-           intra: bool, with_rem: bool):
-    _, rem, qbits = _qp_parts(qp, log2n, bit_depth)
+def _quant(coef: torch.Tensor, log2n: int, qp, bit_depth: int,
+           intra: bool, with_rem: bool, batch: bool = False):
+    _, _, qbits, scale, _ = _qp_parts(qp, log2n, bit_depth, batch,
+                                      coef.device)
     add = (171 if intra else 85) << (qbits - 9)
-    scale = int(QUANT_SCALES[rem])
     a = torch.abs(coef) * scale
     level = torch.clamp((a + add) >> qbits, 0, 32767)
     out = torch.sign(coef) * level
@@ -119,22 +136,25 @@ def _quant(coef: torch.Tensor, log2n: int, qp: int, bit_depth: int,
     return out, (a - (level << qbits)) >> (qbits - 8)
 
 
-def _dequant(level: torch.Tensor, log2n: int, qp: int,
-             bit_depth: int) -> torch.Tensor:
-    per, rem, _ = _qp_parts(qp, log2n, bit_depth)
+def _dequant(level: torch.Tensor, log2n: int, qp, bit_depth: int,
+             batch: bool = False) -> torch.Tensor:
+    per, _, _, _, inv = _qp_parts(qp, log2n, bit_depth, batch,
+                                  level.device)
     shift = bit_depth + log2n - 9
-    scale = int(INV_QUANT_SCALES[rem]) << per
+    scale = inv << per
     return torch.clamp((level * scale + (1 << (shift - 1))) >> shift,
                        -32768, 32767)
 
 
-def quant_lanes(coef: torch.Tensor, size: int, qp: int, bit_depth: int = 8,
+def quant_lanes(coef: torch.Tensor, size: int, qp, bit_depth: int = 8,
                 intra: bool = True, with_rem: bool = False):
+    """Quantise (N, N, B) coefficients; qp a python int or a (B,) int32
+    per-block vector."""
     return _quant(coef, size.bit_length() - 1, qp, bit_depth, intra,
                   with_rem)
 
 
-def dequant_lanes(level: torch.Tensor, size: int, qp: int,
+def dequant_lanes(level: torch.Tensor, size: int, qp,
                   bit_depth: int = 8) -> torch.Tensor:
     return _dequant(level, size.bit_length() - 1, qp, bit_depth)
 
@@ -238,16 +258,17 @@ def idct_batch(coef: torch.Tensor, size: int, bit_depth: int = 8,
     return r.transpose(-1, -2)
 
 
-def quant_batch(coef: torch.Tensor, size: int, qp: int, bit_depth: int = 8,
+def quant_batch(coef: torch.Tensor, size: int, qp, bit_depth: int = 8,
                 intra: bool = True, with_rem: bool = False):
-    """Quantize (B, N, N) int32 coefficients at one QP."""
+    """Quantize (B, N, N) int32 coefficients at one QP or a (B,) per-block
+    QP vector."""
     return _quant(coef, size.bit_length() - 1, qp, bit_depth, intra,
-                  with_rem)
+                  with_rem, batch=True)
 
 
-def dequant_batch(level: torch.Tensor, size: int, qp: int,
+def dequant_batch(level: torch.Tensor, size: int, qp,
                   bit_depth: int = 8) -> torch.Tensor:
-    return _dequant(level, size.bit_length() - 1, qp, bit_depth)
+    return _dequant(level, size.bit_length() - 1, qp, bit_depth, batch=True)
 
 
 def sign_hide_batch(coefs: torch.Tensor, size: int, scan_sel,
@@ -512,3 +533,109 @@ def rdoq_batch(tcoef: torch.Tensor, size: int, qp, lam2: float,
     if not with_rem:
         return res.permute(2, 0, 1)
     return res[0].permute(2, 0, 1), res[1].permute(2, 0, 1)
+
+
+# =============================================================================
+# host (numpy) forms, one block at a time: the host-recon I path
+# =============================================================================
+
+def dct_np(resi: np.ndarray, bit_depth: int = 8, dst: bool = False
+           ) -> np.ndarray:
+    """Forward transform of one NxN int residual block -> int32 coeffs."""
+    n = resi.shape[-1]
+    log2n = n.bit_length() - 1
+    t = _fwd_matrix(n, dst).astype(np.int64)
+    s1 = log2n + bit_depth - 9
+    s2 = log2n + 6
+    x = resi.astype(np.int64)
+    m1 = _rshift_round(t @ x.T, s1)            # (T @ X^T) >> s1
+    m2 = _rshift_round(t @ m1.T, s2)           # (T @ M1^T) >> s2
+    return m2.astype(np.int32)
+
+
+def idct_np(coef: np.ndarray, bit_depth: int = 8, dst: bool = False
+            ) -> np.ndarray:
+    """Normative inverse transform (clause 8.6.4) -> int residual."""
+    n = coef.shape[-1]
+    t = _fwd_matrix(n, dst).astype(np.int64)
+    s2 = 20 - bit_depth
+    c = coef.astype(np.int64)
+    m1 = np.clip(_rshift_round(t.T @ c, 7), -32768, 32767)
+    r = np.clip(_rshift_round(t.T @ m1.T, s2), -32768, 32767)
+    return r.T.astype(np.int32)
+
+
+def quant_np(coef: np.ndarray, qp: int, bit_depth: int = 8,
+             intra: bool = True, with_rem: bool = False):
+    """Scalar quantization of one block; with_rem also returns the
+    sub-step rounding remainder deltaU (HM/x265), which sign-bit hiding
+    uses to pick the cheapest parity adjustment."""
+    n = coef.shape[-1]
+    log2n = n.bit_length() - 1
+    per, rem = qp // 6, qp % 6
+    qbits = QUANT_SHIFT + per + transform_shift(log2n, bit_depth)
+    add = (171 if intra else 85) << (qbits - 9)
+    scale = int(QUANT_SCALES[rem])
+    a = np.abs(coef.astype(np.int64)) * scale
+    level = (a + add) >> qbits
+    level = np.clip(level, 0, 32767)
+    out = (np.sign(coef) * level).astype(np.int32)
+    if not with_rem:
+        return out
+    # signed remainder WITHOUT the rounding offset: > 0 means the true
+    # value is above level * step (raising is good), < 0 the opposite
+    delta_u = ((a - (level << qbits)) >> (qbits - 8)).astype(np.int32)
+    return out, delta_u
+
+
+def dequant_np(level: np.ndarray, qp: int, bit_depth: int = 8) -> np.ndarray:
+    """Normative dequantization (clause 8.6.3, flat scaling list)."""
+    n = level.shape[-1]
+    log2n = n.bit_length() - 1
+    per, rem = qp // 6, qp % 6
+    shift = bit_depth + log2n - 9
+    scale = int(INV_QUANT_SCALES[rem]) << per
+    v = (level.astype(np.int64) * scale + (1 << (shift - 1))) >> shift
+    return np.clip(v, -32768, 32767).astype(np.int32)
+
+
+def sign_hide_np(blk: np.ndarray, scan_idx: int,
+                 delta_u: np.ndarray) -> np.ndarray:
+    """Hidden-sign parity of one quantized NxN block: in every 4x4 CG
+    where lastSigScanPos - firstSigScanPos > 3 the decoder infers the
+    sign at firstSigScanPos from the parity of the level sum. Where the
+    parity disagrees, one |level| moves by 1, at the position and in
+    the direction of least rounding cost (x265 signBitHidingHDQ):
+    lowering costs deltaU, raising -deltaU; a level of 1 at the first
+    or last significant position may not be lowered."""
+    n = blk.shape[-1]
+    out = blk.copy()
+    perm = _cg_perm(scan_idx)
+    for cy in range(max(n // 4, 1)):
+        for cx in range(max(n // 4, 1)):
+            sl = (slice(cy * 4, cy * 4 + 4), slice(cx * 4, cx * 4 + 4))
+            cg = out[sl].reshape(-1)
+            lv = cg[perm].copy()
+            du = delta_u[sl].reshape(-1)[perm]
+            nz = np.nonzero(lv)[0]
+            if len(nz) == 0 or nz[-1] - nz[0] <= 3:
+                continue
+            first, last = nz[0], nz[-1]
+            neg = 1 if lv[first] < 0 else 0
+            if (int(np.abs(lv).sum()) & 1) == neg:
+                continue
+            big = 1 << 30
+            sig = lv != 0
+            can_lower = sig & (np.abs(lv) < 32768) & \
+                ((np.abs(lv) >= 2) |
+                 ((np.arange(16) != first) & (np.arange(16) != last)))
+            can_raise = sig & (np.abs(lv) < 32767)
+            lower_cost = np.where(can_lower, du, big)
+            raise_cost = np.where(can_raise, -du, big)
+            costs = np.concatenate([lower_cost, raise_cost])
+            k = int(np.argmin(costs))
+            pos, d = (k, -1) if k < 16 else (k - 16, 1)
+            lv[pos] += d if lv[pos] > 0 else -d
+            cg[perm] = lv
+            out[sl] = cg.reshape(4, 4)
+    return out
