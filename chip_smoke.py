@@ -94,8 +94,22 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      must have launched 4 times per P frame and the search 2), one
      profile of its P chunk with its maps, and the device's busy and
      idle shares of its P-frame wall;
-  11. the kernels line (one JSON object; launches summed over the timed
-     passes of the six paths, and per path; times and bounds per P
+  11. the CLI (python -m x265_tpu_torch.cli, through cli.main): card ==
+     CPU on 64x96 legs (--preset fast --crf 28 with B frames; ultrafast
+     /zerolatency ABR + VBV with the hash, AUD and length-prefixed
+     units; a two-pass pair; --analysis-save then --analysis-load;
+     --param wpp=1; a two-rung AbrEncoder), each its output bytes, csv
+     rows (but wall_s) and stats files; a 1080p leg of 1 I + 2 P under
+     the timed pass's flags (bytes and QPs); then the bench clip as a
+     25-frame y4m through one timed pass of --preset medium --tune
+     zerolatency --bitrate 3000 --vbv-maxrate 3000 --vbv-bufsize 6000
+     --hash 1 (fps, kb/s against 3000, the QP range per frame type, VBV
+     underflows, seconds per I and P frame, every MD5 SEI checked
+     against the recon; the gather must have launched 4 times per P
+     frame and the search 2); scale_frame 1080p -> 1280x720 card == CPU
+     with its device time;
+  12. the kernels line (one JSON object; launches summed over the timed
+     passes of the seven paths, and per path; times and bounds per P
      frame at the bench path's shapes, as its ms_of says), the card
      line, and the last line
      {"ok": true, "device": {...}}.
@@ -108,6 +122,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -116,7 +131,7 @@ import torch
 
 GOP = 25                     # 1 I + 24 P, the bench clip
 CHUNK = 8
-PROFILE_P = 2                # P frames in each profiled chunk
+PROFILE_P = 1                # P frames in each profiled chunk
 QP = 32
 CARD_CPU_SIZE = (1080, 1920)  # (h, w) of the I + 1 P card-vs-CPU leg
 BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak
@@ -1238,8 +1253,9 @@ def phase_path(path: str, make_cfg, first_frames):
     one warm-up pass, then a timed pass with every launch count set to
     0 just before it and read just after. first_frames: the card's
     frames of a card-vs-CPU leg of this configuration on the same clip,
-    which the timed pass must reproduce. Returns the launches and the
-    clip."""
+    which the timed pass must reproduce. Returns the launches, the
+    clip and the timed pass's I frame (its DeviceRef), from which the
+    path's profile predicts."""
     from x265_tpu_torch.ops.me_win import gather_windows, \
         int_search_pair_windows, int_search_windows
     frames = [synth_1080p(i % 3, shift=2 * i) for i in range(GOP)]
@@ -1285,15 +1301,15 @@ def phase_path(path: str, make_cfg, first_frames):
                       "launches": launches,
                       **path_stats(res, make_cfg(1080, 1920).ctu_size)}),
           flush=True)
-    return launches, frames
+    return launches, frames, res[0].device_ref
 
 
-def phase_rdoq(frames):
+def phase_rdoq(frames, i_ref):
     """RDOQ's cost in one slow/zerolatency P frame at 1080p: every
     rdoq_lanes call of the frame recorded (its inputs kept), then
     replayed alone, once to warm up and once under torch.profiler: the
     calls, the device ops they launch and those ops' device time, and
-    the replay's wall time."""
+    the replay's wall time. i_ref: the slow path's I frame (DeviceRef)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from x265_tpu_torch.enc import IntraEncoder, pgop_gpu
@@ -1305,8 +1321,7 @@ def phase_rdoq(frames):
         return real(tcoef, *a, **k)
 
     enc = IntraEncoder(slow_config(1080, 1920), device="cuda")
-    r0 = enc.encode_frame(*frames[0], qp=QP - 3, need_recon=False)
-    enc.ref = r0.device_ref
+    enc.ref = i_ref
     pgop_gpu.rdoq_lanes = record
     try:
         enc.encode_pgop(frames[1:2], need_recon=False)
@@ -1401,6 +1416,284 @@ def phase_profile(frames, cfg, path="bench", coded=None, i_ref=None):
     return busy_ms / PROFILE_P
 
 
+# --- the CLI (python -m x265_tpu_torch.cli) ---------------------------------
+
+CLI_RATE = ["--bitrate", "3000", "--vbv-maxrate", "3000", "--vbv-bufsize",
+            "6000", "--hash", "1"]
+CLI_1080P = ["--preset", "medium", "--tune", "zerolatency", *CLI_RATE]
+ZL_FAST = ["--preset", "ultrafast", "--tune", "zerolatency"]
+# the 64x96 card == CPU legs: (tag, clip, passes); each pass is the
+# flags of one cli.main call ({d}: the leg's directory)
+CLI_LEGS = (
+    ("fast crf 28 (B frames, b-adapt) 10 frames", lambda: b_clip(10),
+     [["--preset", "fast", "--crf", "28", "--csv-log-level", "1"]]),
+    ("ultrafast/zerolatency ABR + VBV, hash, AUD, no-annexb 8 frames",
+     lambda: small_clip(8),
+     [[*ZL_FAST, "--bitrate", "200", "--vbv-maxrate", "200",
+       "--vbv-bufsize", "400", "--hash", "1", "--aud", "--no-annexb"]]),
+    ("two-pass ABR 150 8 frames", lambda: small_clip(8),
+     [[*ZL_FAST, "--bitrate", "150", "--pass", "1", "--stats",
+       "{d}/2pass.log"],
+      [*ZL_FAST, "--bitrate", "150", "--pass", "2", "--stats",
+       "{d}/2pass.log"]]),
+    ("analysis save then load 8 frames", lambda: small_clip(8),
+     [[*ZL_FAST, "--analysis-save", "{d}/analysis.npz"],
+      [*ZL_FAST, "--analysis-load", "{d}/analysis.npz"]]),
+    ("fast/zerolatency wpp=1 8 frames", lambda: small_clip(8),
+     [["--preset", "fast", "--tune", "zerolatency", "--param", "wpp=1",
+       "--hash", "1"]]),
+    ("AbrEncoder 96x64 ABR 200 + 48x32 CQP, 6 frames", lambda: small_clip(6),
+     None))
+
+
+def write_y4m(path, frames) -> str:
+    from x265_tpu_torch.io import Y4MWriter
+    h, w = frames[0][0].shape
+    wr = Y4MWriter(str(path), w, h)
+    for f in frames:
+        wr.write_frame(*f)
+    wr.close()
+    return str(path)
+
+
+def csv_rows(path) -> list:
+    """The rows of a --csv file, the wall_s column dropped."""
+    rows = [r.split(",") for r in open(path).read().splitlines()]
+    drop = rows[0].index("wall_s") if "wall_s" in rows[0] else None
+    return [[c for k, c in enumerate(r) if k != drop] for r in rows]
+
+
+def cli_leg_outputs(tag, device, workdir) -> dict:
+    """One CLI leg's passes through cli.main on device (or, for the
+    ladder, AbrEncoder), in workdir. Returns {file: content}: output
+    bytes, csv rows without wall_s, the two-pass stats text and the
+    analysis file's arrays."""
+    import io
+    import pathlib
+    from x265_tpu_torch import abr
+    from x265_tpu_torch.cli import main as cli_main
+    from x265_tpu_torch.common.params import EncoderConfig
+    _, clip, passes = next(leg for leg in CLI_LEGS if leg[0] == tag)
+    d = pathlib.Path(workdir)
+    d.mkdir(parents=True, exist_ok=True)
+    frames = clip()
+    if passes is None:
+        base = EncoderConfig(width=96, height=64, qp=32, hash_sei=1)
+        base.apply_preset("ultrafast")
+        base.bframes = 0
+        outs = [io.BytesIO(), io.BytesIO()]
+        ladder = abr.AbrEncoder([abr.Rung(96, 64, 200), abr.Rung(48, 32, 0)],
+                                base, outs, device=device)
+        for f in frames:
+            ladder.push_frame(f)
+        return {f"rung{k}": o.getvalue() for k, o in enumerate(outs)}
+    src = write_y4m(d / "in.y4m", frames)
+    for k, flags in enumerate(passes):
+        argv = [src, "-o", str(d / f"out{k}.hevc"), "--csv",
+                str(d / f"s{k}.csv"), "--no-progress",
+                *(f.format(d=d) for f in flags)]
+        if cli_main(argv, device=device) != 0:
+            raise AssertionError(f"{tag}: cli.main failed on {device}")
+    out = {}
+    for p in sorted(d.iterdir()):
+        if p.suffix == ".hevc":
+            out[p.name] = p.read_bytes()
+        elif p.suffix == ".csv":
+            out[p.name] = csv_rows(p)
+        elif p.suffix == ".log":
+            out[p.name] = p.read_text()
+        elif p.suffix == ".npz":
+            out[p.name] = [{k: np.asarray(v).tolist() for k, v in fr.items()}
+                           for fr in np.load(p, allow_pickle=True)["frames"]]
+    return out
+
+
+class EncoderTimer:
+    """Wall seconds of IntraEncoder.encode_frame and encode_pgop calls
+    made inside cli.main (the class methods wrapped while the context
+    is open; the device is synchronized around each call)."""
+
+    def __enter__(self):
+        from x265_tpu_torch.enc.encoder import IntraEncoder
+        self.cls, self.secs = IntraEncoder, {"I": [], "P": []}
+        self.real = {n: getattr(IntraEncoder, n)
+                     for n in ("encode_frame", "encode_pgop")}
+
+        def wrap(name, kind):
+            fn = self.real[name]
+
+            def run(enc, *a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = fn(enc, *a, **k)
+                torch.cuda.synchronize()
+                self.secs[kind].append(time.perf_counter() - t)
+                return r
+            return run
+
+        IntraEncoder.encode_frame = wrap("encode_frame", "I")
+        IntraEncoder.encode_pgop = wrap("encode_pgop", "P")
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.cls, n, fn)
+
+
+def phase_cli_card_equals_cpu(workdir):
+    """Every 64x96 CLI leg on the card and on the CPU: the same output
+    bytes, csv rows (but wall_s) and stats files."""
+    for tag, _, _ in CLI_LEGS:
+        t0 = time.perf_counter()
+        card = cli_leg_outputs(tag, "cuda", f"{workdir}/{len(tag)}card")
+        t1 = time.perf_counter()
+        cpu = cli_leg_outputs(tag, "cpu", f"{workdir}/{len(tag)}cpu")
+        t2 = time.perf_counter()
+        if card != cpu:
+            bad = sorted(k for k in set(card) | set(cpu)
+                         if card.get(k) != cpu.get(k))
+            raise AssertionError(f"CLI card != CPU at {tag}: {bad}")
+        streams = [v for k, v in card.items() if isinstance(v, bytes)]
+        print(json.dumps({"cli_card_equals_cpu": tag, "files": sorted(card),
+                          "bytes": sum(len(v) for v in streams),
+                          "card_s": t1 - t0, "cpu_s": t2 - t1}), flush=True)
+
+
+def verify_hash_seis(stream: bytes, recon_y4m: str) -> int:
+    """Every picture's MD5 SEI against its recon (IPPP: decode order is
+    display order), with the port's parser and hash. Returns the count."""
+    from x265_tpu_torch.bitstream.nal import split_annexb
+    from x265_tpu_torch.bitstream.sei import (parse_picture_hash_sei,
+                                              picture_md5)
+    from x265_tpu_torch.io import Y4MReader
+    seis = [parse_picture_hash_sei(rb) for t, rb, _ in split_annexb(stream)
+            if int(t) == 40]
+    recs = list(Y4MReader(recon_y4m))
+    if len(seis) != len(recs):
+        raise AssertionError(f"{len(seis)} hash SEIs for {len(recs)} "
+                             f"frames")
+    for k, (sei, rec) in enumerate(zip(seis, recs)):
+        if sei is None or sei[0] != 1 or sei[1] != picture_md5(*rec):
+            raise AssertionError(f"frame {k}: MD5 SEI does not match the "
+                                 f"recon")
+    return len(seis)
+
+
+def phase_cli(workdir):
+    """The CLI at 1080p: the 64x96 legs card == CPU; one timed pass of
+    the bench clip (25 frames as y4m) with --preset medium --tune
+    zerolatency under ABR 3000 kb/s + VBV, hash SEIs verified, launch
+    counts set to 0 just before it and read just after; a card == CPU
+    leg of 1 I + 2 P: the CPU's 3-frame encode against the timed pass's
+    first 3 frames (rate control is causal, and the CLI writes each
+    frame as it is coded, so those are the card's 3-frame encode):
+    bytes and QPs; scale_frame 1080p -> 1280x720 card == CPU with its
+    device time. Returns the launches."""
+    from x265_tpu_torch.cli import main as cli_main
+    from x265_tpu_torch.common.params import EncoderConfig
+    from x265_tpu_torch.enc.ratecontrol import RateControl
+    from x265_tpu_torch.ops.me_win import gather_windows, \
+        int_search_pair_windows, int_search_windows
+    from x265_tpu_torch.ops.scaler import scale_frame, scale_plane_t
+    phase_cli_card_equals_cpu(workdir)
+    frames = [synth_1080p(i % 3, shift=2 * i) for i in range(GOP)]
+    src = write_y4m(f"{workdir}/bench.y4m", frames)
+
+    counted = (gather_windows, int_search_pair_windows, int_search_windows)
+    for fn in counted:
+        fn.launches = 0
+    out = f"{workdir}/cli_1080p"
+    with EncoderTimer() as timer:
+        t0 = time.perf_counter()
+        rc = cli_main([src, "-o", out + ".hevc", "--csv", out + ".csv",
+                       "--recon", out + ".y4m", "--no-progress",
+                       *CLI_1080P], device="cuda")
+        wall = time.perf_counter() - t0
+    launches = {"gather_windows": gather_windows.launches,
+                "int_search": int_search_pair_windows.launches +
+                int_search_windows.launches}
+    rows = csv_rows(out + ".csv")[1:]
+    if rc != 0 or len(rows) != GOP:
+        raise AssertionError(f"the 1080p CLI pass coded {len(rows)} frames")
+    stream = open(out + ".hevc", "rb").read()
+    n_hash = verify_hash_seis(stream, out + ".y4m")
+    types = [r[1] for r in rows]
+    n_p = types.count("P")
+    want = {"gather_windows": 4 * n_p, "int_search": 2 * n_p}
+    if launches != want or int_search_pair_windows.launches != n_p:
+        raise AssertionError(f"cli: launches {launches}, want {want}")
+    # card == CPU: the CPU's first 3 frames under the same flags
+    t0 = time.perf_counter()
+    leg = f"{workdir}/leg_cpu"
+    if cli_main([src, "-o", leg + ".hevc", "--csv", leg + ".csv", "-f", "3",
+                 "--no-progress", *CLI_1080P], device="cpu") != 0:
+        raise AssertionError("1080p CLI leg failed on the CPU")
+    cpu_s = time.perf_counter() - t0
+    cpu_stream, cpu_rows = open(leg + ".hevc", "rb").read(), \
+        csv_rows(leg + ".csv")[1:]
+    if stream[:len(cpu_stream)] != cpu_stream or cpu_rows != rows[:3] or \
+            stream[len(cpu_stream):len(cpu_stream) + 4] != b"\0\0\0\1":
+        raise AssertionError("1080p CLI leg: card != CPU (bytes or QPs)")
+    print(json.dumps({"cli_card_equals_cpu": "1080p medium/zerolatency ABR "
+                      "3000 + VBV, hash, 1 I + 2 P", "bytes": len(cpu_stream),
+                      "qps": [r[2] for r in cpu_rows], "cpu_s": cpu_s}),
+          flush=True)
+    # the VBV buffer through the coded frames, as the CLI's controller
+    # saw it (the CLI's settings after its level check)
+    cfg = EncoderConfig(width=1920, height=1080, bitrate=3000,
+                        rc_mode="abr", vbv_bufsize=6000, vbv_maxrate=3000)
+    cfg.enforce_level()
+    vbv = RateControl(cfg)
+    for r in rows:
+        vbv.frame_done(int(r[3]), int(r[2]), 1.0, r[1] == "I")
+    qps = {t: [int(r[2]) for r in rows if r[1] == t] for t in ("I", "P")}
+    kbps = len(stream) * 8 * 25 / GOP / 1000
+    print(json.dumps({
+        "path": "cli", "clip": "1080p y4m, 25 frames, python -m "
+        "x265_tpu_torch.cli " + " ".join(CLI_1080P), "frames": len(rows),
+        "frame_types": "".join(types), "bytes": len(stream),
+        "wall_s": wall, "fps": GOP / wall, "kbps": kbps,
+        "kbps_target": 3000, "kbps_over_target": kbps / 3000,
+        "qp_range": {t: [min(q), max(q)] for t, q in qps.items() if q},
+        "qps": [int(r[2]) for r in rows],
+        "vbv_underflows": vbv.vbv_underflows,
+        "i_frame_s_each": sum(timer.secs["I"]) / max(len(timer.secs["I"]), 1),
+        "p_frame_s": sum(timer.secs["P"]) / max(n_p, 1),
+        "host_rest_s_per_frame": (wall - sum(timer.secs["I"]) -
+                                  sum(timer.secs["P"])) / GOP,
+        "md5_seis_verified": n_hash, "launches": launches,
+        "psnr_y_mean": float(np.mean([float(r[4]) for r in rows]))}),
+        flush=True)
+
+    # the scaler: 1080p -> 1280x720 on the card against the CPU
+    card = scale_frame(frames[0], 1280, 720, device="cuda")
+    cpu = scale_frame(frames[0], 1280, 720, device="cpu")
+    if any(not np.array_equal(a, b) for a, b in zip(card, cpu)):
+        raise AssertionError("scale_frame: card != CPU")
+    planes = [torch.from_numpy(p.astype(np.int32)).cuda() for p in frames[0]]
+
+    def scale_all():
+        scale_plane_t(planes[0], 720, 1280)
+        scale_plane_t(planes[1], 360, 640)
+        scale_plane_t(planes[2], 360, 640)
+
+    scale_all()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        scale_all()
+    stop.record()
+    torch.cuda.synchronize()
+    print(json.dumps({"scale_frame": "1080p -> 1280x720, card == CPU",
+                      "ms_per_frame": start.elapsed_time(stop) / 10,
+                      "ms_of": "CUDA events around 10 calls of the three "
+                      "planes, their tap-index uploads included"}),
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("CUDA is not available: this script runs on a GPU only")
@@ -1452,12 +1745,12 @@ def main() -> int:
             ("medium", medium_config,
              legs["medium/zerolatency 1080x1920 1I+1P"]),
             ("slow", slow_config, legs["slow/zerolatency 1080x1920 1I+2P"])):
-        launches[path], frames = phase_path(path, make_cfg, first)
+        launches[path], frames, i_ref = phase_path(path, make_cfg, first)
         log(f"{path} path ran, launches {launches[path]}")
         done(f"{path}_path")
-        phase_profile(frames, make_cfg(1080, 1920), path)
+        phase_profile(frames, make_cfg(1080, 1920), path, i_ref=i_ref)
         done(f"{path}_profile")
-    phase_rdoq(frames)
+    phase_rdoq(frames, i_ref)
     done("rdoq")
     first = phase_b_card_equals_cpu()
     log("B path: card == CPU")
@@ -1473,6 +1766,10 @@ def main() -> int:
     launches["aq_cutree"] = phase_aq_cutree(first)
     log(f"aq_cutree path ran, launches {launches['aq_cutree']}")
     done("aq_cutree_path_and_profile")
+    with tempfile.TemporaryDirectory() as workdir:
+        launches["cli"] = phase_cli(workdir)
+    log(f"cli ran, launches {launches['cli']}")
+    done("cli")
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": time.perf_counter() - t0}), flush=True)
 
@@ -1480,8 +1777,8 @@ def main() -> int:
     # (the B path's searches have the fast path's shapes: side 11; the
     # aq_cutree path has the medium path's shapes)
     search["fast_b"] = search["fast"]
-    gather["aq_cutree"], search["aq_cutree"] = gather["medium"], \
-        search["medium"]
+    for path in ("aq_cutree", "cli"):
+        gather[path], search[path] = gather["medium"], search["medium"]
     print(json.dumps({"kernels_per_path": {
         path: {"gather_windows": {**{k: gather[path][k] for k in
                                      ("ms", "plain_ms", "library_ms",
@@ -1492,7 +1789,7 @@ def main() -> int:
                                  ("ms", "plain_ms", "bound_ms", "bound_by")},
                               "launches": launches[path]["int_search"]}}
         for path in launches}}), flush=True)
-    # launches: summed over the six paths' timed passes; the times and
+    # launches: summed over the seven paths' timed passes; the times and
     # the bound: per P frame at the bench path's shapes (ms_of)
     total = {k: sum(n[k] for n in launches.values())
              for k in ("gather_windows", "int_search")}

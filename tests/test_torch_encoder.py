@@ -4,6 +4,10 @@ chunks of 2) encoded by x265_tpu_torch on the CPU must give streams
 byte-identical to x265_tpu's, which x265_tpu.decoder decodes to the
 port's recon. Frames and config follow tests/test_pipelined.py, so the
 reference's compiled programs can come from the persistent cache.
+Beside it, one 2-frame P chunk of x265_tpu_torch.enc.pgop_gpu against
+x265_tpu.enc.pgop_tpu, both predicting from the reference package's own
+I-frame recon: every FramePSyntax field and recon sample (the same
+reference programs as the 64x96 stream, loaded once per process).
 Also: the package imports neither JAX nor x265_tpu, its entry points
 want a GPU unless the CPU is asked for, and options it does not port
 raise."""
@@ -20,9 +24,12 @@ import torch
 from x265_tpu.common.params import EncoderConfig as RefConfig
 from x265_tpu.decoder import decode_annexb
 from x265_tpu.enc import IntraEncoder as RefEncoder
+from x265_tpu.enc.pgop_tpu import encode_pgop_tpu
+from x265_tpu.enc.weightp import analyse_gop_weights
 from x265_tpu_torch.common.params import EncoderConfig
-from x265_tpu_torch.convert import config_from_dict
+from x265_tpu_torch.convert import config_from_dict, device_ref_from_numpy
 from x265_tpu_torch.enc import IntraEncoder
+from x265_tpu_torch.enc.pgop_gpu import collect_pgop_gpu, submit_pgop_gpu
 
 torch.set_num_threads(2)
 
@@ -48,7 +55,9 @@ def test_ippp_stream_matches_reference(h, w):
     r0 = enc.encode_frame(*frames[0], qp=rcfg.qp - 3, use_device_recon=True)
     enc.ref = r0.device_ref
     enc.poc = 0
-    rs = enc.encode_pgop_pipelined(frames[1:], chunk=2)
+    # with its recon: the reference's P-chunk program is then the one
+    # test_p_chunk_matches_reference runs at 64x96
+    rs = enc.encode_pgop_pipelined(frames[1:], chunk=2, need_recon=True)
 
     cfg = config_from_dict(dataclasses.asdict(rcfg))
     penc = IntraEncoder(cfg, device="cpu")
@@ -62,6 +71,10 @@ def test_ippp_stream_matches_reference(h, w):
     for i, (a, b) in enumerate(zip(rs, ps)):
         assert a.bitstream == b.bitstream, f"P frame {i + 1}"
 
+    for a, b in zip(rs, ps):
+        for k in ("y", "cb", "cr"):
+            np.testing.assert_array_equal(getattr(a.recon, k),
+                                          getattr(b.recon, k))
     stream = p0.bitstream + b"".join(r.bitstream for r in ps)
     dec = decode_annexb(stream)
     assert len(dec) == 7
@@ -72,19 +85,93 @@ def test_ippp_stream_matches_reference(h, w):
                                           err_msg=f"frame {i} {k}")
 
 
+FIELDS = ("depth8", "mv8", "coeff_y", "coeff_cb", "coeff_cr", "intra8",
+          "mode8", "tusplit8", "ref8", "sao_params", "qp_map", "max_merge")
+
+
+def _clip(nf, h=64, w=96, seed=21):
+    """A pan with a textured object entering from the right edge (new
+    content, so intra competes in the P frames) and a luma fade (so the
+    weightp weights are not neutral)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = ((xx * 5 + yy * 3) % 200 + 20).astype(np.int32)
+    tex = rng.integers(0, 256, (h, w))
+    frames = []
+    for i in range(nf):
+        y = np.roll(base, 3 * i, axis=1) + rng.integers(-5, 5, (h, w))
+        edge = w - 10 * i
+        y[16:48, edge:] = tex[16:48, edge:]
+        y = np.clip(y * (1.0 - 0.06 * i), 0, 255).astype(np.uint8)
+        cb = np.clip(110 + (xx[::2, ::2] >> 3) + 2 * i, 0, 255) \
+            .astype(np.uint8)
+        cr = np.clip(140 - (yy[::2, ::2] >> 2), 0, 255).astype(np.uint8)
+        frames.append((y, cb, cr))
+    return frames
+
+
+def test_p_chunk_matches_reference():
+    frames = _clip(3)
+    h, w = frames[0][0].shape
+    rcfg = RefConfig(width=w, height=h, qp=32, deblock=True)
+    cfg = config_from_dict(dataclasses.asdict(rcfg))
+    enc = RefEncoder(rcfg)
+    r0 = enc.encode_frame(*frames[0], qp=29, use_device_recon=True)
+    wps = analyse_gop_weights(frames[1:], frames[0])
+    wvecs = np.stack([wp.vec() for wp in wps])
+    assert any(wp.luma_on for wp in wps)
+
+    def stack(k):
+        return np.stack([f[k] for f in frames[1:]])
+
+    syns, recons, _ = encode_pgop_tpu(stack(0), stack(1), stack(2),
+                                      r0.device_ref, rcfg, 32,
+                                      need_recon=True, me_range=rcfg.me_range,
+                                      weights=wvecs)
+    ref = device_ref_from_numpy(r0.recon.y, r0.recon.cb, r0.recon.cr,
+                                device="cpu")
+    pend = submit_pgop_gpu(stack(0), stack(1), stack(2), ref, cfg, 32,
+                           need_recon=True, me_range=cfg.me_range,
+                           weights=wvecs, device="cpu")
+    tsyns, trecons, last = collect_pgop_gpu(pend)
+    assert len(tsyns) == 2
+    for i in range(2):
+        for k in FIELDS:
+            a, b = getattr(syns[i], k), getattr(tsyns[i], k)
+            assert (a is None) == (b is None), (i, k)
+            if a is not None:
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                              err_msg=f"frame {i} {k}")
+        for k in ("y", "cb", "cr"):
+            np.testing.assert_array_equal(getattr(recons[i], k),
+                                          getattr(trecons[i], k),
+                                          err_msg=f"frame {i} recon {k}")
+    # the carried reference stack holds the last recon in slot 0
+    assert last.y.shape == (1, h, w)
+    np.testing.assert_array_equal(last.to_recon().y, trecons[-1].y)
+    # the content exercises intra-in-inter and the RQT split
+    assert any(s.intra8 is not None for s in syns)
+    assert any(s.tusplit8 is not None for s in syns)
+
+
 def test_package_imports_neither_jax_nor_reference():
     """Every module of x265_tpu_torch (the B path's enc/bframe_gpu.py and
     enc/lookahead.py, ops/fma.py, the device lookahead
-    enc/lookahead_gpu.py and the host I path's ops/sao.py and
-    ops/intra_np.py among them), and chip_smoke.py, import without
-    pulling JAX or the reference package into the process."""
+    enc/lookahead_gpu.py, the host I path's ops/sao.py and
+    ops/intra_np.py, and the CLI's cli.py, abr.py, enc/ratecontrol.py,
+    io/, bitstream/sei.py, bitstream/hdr10plus.py, ops/metrics.py,
+    ops/scaler.py and version.py among them), and chip_smoke.py, import
+    without pulling JAX or the reference package into the process."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import x265_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "x265_tpu_torch.__path__, 'x265_tpu_torch.')]\n"
         "for n in ('enc.bframe_gpu', 'enc.lookahead', 'ops.fma',\n"
-        "          'enc.lookahead_gpu', 'ops.sao', 'ops.intra_np'):\n"
+        "          'enc.lookahead_gpu', 'ops.sao', 'ops.intra_np', 'cli',\n"
+        "          'abr', 'enc.ratecontrol', 'io', 'io.y4m', 'io.yuv',\n"
+        "          'bitstream.sei', 'bitstream.hdr10plus', 'ops.metrics',\n"
+        "          'ops.scaler', 'version'):\n"
         "    assert 'x265_tpu_torch.' + n in names, n\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
@@ -120,11 +207,13 @@ def test_entry_points_want_a_gpu():
 @pytest.mark.parametrize("field,value", [
     ("num_refs", 2), ("tmvp", True), ("sao", True), ("ctu_size", 64),
     ("bframes", 3), ("rdoq", True), ("nr_inter", 100),
-    ("lowpass_dct", True), ("aq_mode", 2), ("lossless", True)])
+    ("lowpass_dct", True), ("aq_mode", 2), ("lossless", True),
+    ("wpp", True), ("hash_sei", 1)])
 def test_ported_options_construct(field, value):
     """Multi-reference prediction, TMVP, SAO, CTU 64, B frames (at CTU
-    32), RDOQ, noise reduction, the lowpass DCT, AQ (per-CTU QP) and
-    lossless are ported: the encoder and the P-chunk path take them."""
+    32), RDOQ, noise reduction, the lowpass DCT, AQ (per-CTU QP),
+    lossless, WPP and the picture-hash SEI are ported: the encoder and
+    the P-chunk path take them."""
     from x265_tpu_torch.enc.pgop_gpu import check_pgop_config
     cfg = EncoderConfig(width=64, height=64, qp=32)
     setattr(cfg, field, value)
@@ -143,8 +232,7 @@ def test_tune_ssim_constructs():
     check_pgop_config(cfg)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("wpp", True, 17), ("bit_depth", 10, 19), ("hash_sei", 1, 24)])
+@pytest.mark.parametrize("field,value,item", [("bit_depth", 10, 19)])
 def test_unported_options_raise(field, value, item):
     cfg = EncoderConfig(width=64, height=64, qp=32)
     setattr(cfg, field, value)

@@ -9,7 +9,8 @@ medium/zerolatency and placebo/zerolatency configurations, with noise
 reduction and with B frames (--preset fast); the device lookahead on
 the card against the CPU, and the per-CTU-QP streams (encode_sequence
 with AQ 2 + cuTree, a B mini-GOP with AQ 2, the lossless and CTU-16 I
-frames of the host-recon path).
+frames of the host-recon path), the CLI's 64x96 legs, the scaler and
+the device SSIM on the card against the CPU.
 This file imports neither JAX nor the reference package, so it runs on
 a machine with a GPU and no JAX:
 
@@ -576,6 +577,48 @@ def test_card_stream_equals_cpu_aq_cutree_and_host_i_path():
                             device=d).encode_frame(*fr).bitstream
                for d in ("cuda", "cpu")]
         assert out[0] == out[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leg", range(6))
+def test_cli_legs_on_card_equal_cpu(leg, tmp_path):
+    """The 64x96 CLI legs of chip_smoke.py (fast CRF with B frames,
+    ABR + VBV with the hash, AUD and length-prefixed units, a two-pass
+    pair, analysis save then load, WPP, a two-rung ABR ladder) through
+    cli.main on the card and on the CPU: the same output bytes, csv
+    rows (but wall_s) and stats files."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from chip_smoke import CLI_LEGS, cli_leg_outputs
+    tag = CLI_LEGS[leg][0]
+    card = cli_leg_outputs(tag, "cuda", tmp_path / "card")
+    cpu = cli_leg_outputs(tag, "cpu", tmp_path / "cpu")
+    assert card.keys() == cpu.keys()
+    for k in card:
+        assert card[k] == cpu[k], f"{tag}: {k}"
+
+
+@pytest.mark.gpu
+def test_scale_frame_and_ssim_on_card_equal_cpu():
+    """scale_frame (1080p -> 1280x720 and a 64x96 downscale) and the
+    device SSIM, card against CPU: the scaler exact (int32 taps), the
+    SSIM's float32 within 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from chip_smoke import small_clip, synth_1080p
+    from x265_tpu_torch.ops.metrics import ssim_plane_t
+    from x265_tpu_torch.ops.scaler import scale_frame
+    for frame, (w, h) in ((synth_1080p(1), (1280, 720)),
+                          (small_clip(1)[0], (48, 32))):
+        card = scale_frame(frame, w, h, device="cuda")
+        cpu = scale_frame(frame, w, h, device="cpu")
+        for a, b in zip(card, cpu):
+            assert a.shape == b.shape and np.array_equal(a, b)
+    a, b = synth_1080p(0)[0], synth_1080p(1)[0]
+    sc = float(ssim_plane_t(torch.from_numpy(a).cuda(),
+                            torch.from_numpy(b).cuda()))
+    sp = float(ssim_plane_t(torch.from_numpy(a), torch.from_numpy(b)))
+    assert abs(sc - sp) <= 1e-6
 
 
 def test_search_cpu_tensors_take_the_plain_version():

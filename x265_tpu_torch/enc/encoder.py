@@ -10,8 +10,10 @@ lowpass DCT, per-CTU QP maps), hierarchical mini-GOPs whose B layers
 run through enc/bframe_gpu.py (RDOQ too; the I frame, as the
 reference's, uses none of the three), and encode_sequence, whose QP
 maps come from the device lookahead (enc/lookahead_gpu.py, AQ and
-cuTree); every frame entropy-coded by the native CABAC and packed into
-Annex-B NAL units. Reference pictures
+cuTree); every frame entropy-coded by the native CABAC (with WPP one
+substream per CTU row) and packed into Annex-B NAL units, followed by
+its decoded-picture-hash SEI when cfg.hash_sei asks. P chunks take
+analysis-reuse seeds (encode_pgop(seeds16=)). Reference pictures
 stay on the device between frames (DeviceRef); the host keeps the DPB
 bookkeeping (references available since the IDR, their POCs, the
 mini-GOP's retention RPS), the collocated picture for TMVP and the
@@ -31,12 +33,14 @@ import torch
 from ..bitstream.ctx_tables import init_states
 from ..bitstream.headers import (write_pps, write_slice_header, write_sps,
                                  write_vps)
-from ..bitstream.nal import NalUnitType, annexb_stream
+from ..bitstream.nal import NalUnitType, annexb_stream, emulation_prevention
+from ..bitstream.sei import write_picture_hash_sei
 from ..bitstream.syntax import FrameIntraSyntax, FramePSyntax
 from ..common.params import B_SLICE, EncoderConfig, I_SLICE, P_SLICE
 from ..common.tables import lambda2_from_qp
 from ..device import resolve_device
-from ..native.entropy_native import encode_slice_native
+from ..native.entropy_native import (encode_slice_native,
+                                     encode_slice_wpp_native)
 from ..ops.deblock import deblock_frame, deblock_frame_np
 from ..ops.sao import (apply_sao_component_np, choose_sao_chroma,
                        choose_sao_params)
@@ -212,8 +216,10 @@ class IntraEncoder:
                 (NalUnitType.PPS, write_pps(cfg))]
 
     def _upload(self, planes: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(
-            planes.astype(np.uint8, copy=False))).to(self.device)
+        # a reader's frames may be read-only views of its buffer
+        return torch.from_numpy(np.require(
+            planes.astype(np.uint8, copy=False),
+            requirements=("C", "W"))).to(self.device)
 
     def encode_frame(self, y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
                      *, use_device_recon: bool = True,
@@ -286,7 +292,8 @@ class IntraEncoder:
             sao_params = tuple(p.cpu().numpy() for p in (p_y, p_cb, p_cr))
         device_ref = DeviceRef(*(p.to(torch.uint8).contiguous()
                                  for p in (dy, dcb, dcr)))
-        recon = device_ref.to_recon() if need_recon else None
+        recon = device_ref.to_recon() if need_recon or cfg.hash_sei \
+            else None
         return self._emit_i_frame(syn, recon, device_ref, sao_params, qp,
                                   None, t_start)
 
@@ -354,28 +361,60 @@ class IntraEncoder:
                                "cabac": time.perf_counter() - t_filt}
         return res
 
-    def _emit_i_frame(self, syn, recon, device_ref, sao_params, qp: int,
-                      qp_map, t_start) -> FrameResult:
-        """Slice header + native I CABAC + NAL packaging of one IDR."""
+    def _code_slice(self, slice_type: int, syn, qp: int, header: dict,
+                    coder: dict) -> tuple[bytes, bytes]:
+        """Slice header + native CABAC slice data of one picture. Returns
+        (rbsp, escaped): without WPP the rbsp holds both and escaped is
+        empty; with WPP (cfg.wpp) the data is one substream per CTU row,
+        already emulation-prevented, after a header that lists their
+        entry points, counted in escaped bytes (clause 7.4.7.1)."""
         cfg = self.cfg
-        w, h = cfg.width_padded, cfg.height_padded
-        sw = write_slice_header(cfg, I_SLICE, idr=True, slice_qp=qp)
-        payload, tail_val, tail_bits = encode_slice_native(
-            2, syn.depth8, syn.coeff_y, syn.coeff_cb, syn.coeff_cr,
-            w, h, cfg.log2_ctu, cfg.log2_min_cu, init_states(I_SLICE, qp),
-            mode8=syn.mode8, sign_hiding=cfg.sign_hiding, cmode8=syn.cmode8,
-            nxn8=syn.nxn8, mode4=syn.mode4, sao_params=sao_params,
-            qp_map=qp_map, slice_qp=qp, lossless=cfg.lossless)
+        # the native coder takes the slice_type code (B 0, P 1, I 2)
+        args = (slice_type, syn.depth8, syn.coeff_y, syn.coeff_cb,
+                syn.coeff_cr, cfg.width_padded, cfg.height_padded,
+                cfg.log2_ctu, cfg.log2_min_cu, init_states(slice_type, qp))
+        if cfg.wpp:
+            escaped = [emulation_prevention(sub) for sub in
+                       encode_slice_wpp_native(*args, **coder)]
+            sw = write_slice_header(
+                cfg, slice_type, num_entry_points=len(escaped) - 1,
+                entry_point_offsets=[len(e) for e in escaped[:-1]], **header)
+            return sw.get_bytes(), b"".join(escaped)
+        sw = write_slice_header(cfg, slice_type, **header)
+        payload, tail_val, tail_bits = encode_slice_native(*args, **coder)
         sw.write_bytes(payload)
         if tail_bits:
             sw.write(tail_val, tail_bits)
         sw.align_one()
+        return sw.get_bytes(), b""
 
+    def _picture_nals(self, nal_type, rbsp: bytes, escaped: bytes,
+                      recon) -> list[tuple]:
+        """The slice NAL of one picture, then with cfg.hash_sei its
+        decoded-picture-hash suffix SEI over the recon."""
+        cfg = self.cfg
+        nals = [(nal_type, rbsp, escaped)]
+        if cfg.hash_sei:
+            nals.append(write_picture_hash_sei(recon.y, recon.cb, recon.cr,
+                                               cfg.bit_depth,
+                                               int(cfg.hash_sei)))
+        return nals
+
+    def _emit_i_frame(self, syn, recon, device_ref, sao_params, qp: int,
+                      qp_map, t_start) -> FrameResult:
+        """Slice header + native I CABAC + NAL packaging of one IDR."""
+        cfg = self.cfg
+        rbsp, pre = self._code_slice(
+            I_SLICE, syn, qp, dict(idr=True, slice_qp=qp),
+            dict(mode8=syn.mode8, sign_hiding=cfg.sign_hiding,
+                 cmode8=syn.cmode8, nxn8=syn.nxn8, mode4=syn.mode4,
+                 sao_params=sao_params, qp_map=qp_map, slice_qp=qp,
+                 lossless=cfg.lossless))
         nals: list[tuple] = []
         if self.frame_count == 0:
             nals.extend(self.headers())
-        nals.append((NalUnitType.IDR_W_RADL, sw.get_bytes(), b""))
-        stream = annexb_stream(nals)
+        stream = annexb_stream(nals + self._picture_nals(
+            NalUnitType.IDR_W_RADL, rbsp, pre, recon))
         self.frame_count += 1
         self.ref_avail = 1           # the IDR resets the DPB
         self._last_p_syn = None
@@ -402,7 +441,6 @@ class IntraEncoder:
         them (the device's duplicate slots hold the same pixels), and
         with TMVP the previous P frame is the collocated picture."""
         cfg = self.cfg
-        w, h = cfg.width_padded, cfg.height_padded
         nrefs = cfg.num_refs
         results = []
         for i, syn in enumerate(syns):
@@ -430,28 +468,22 @@ class IntraEncoder:
                 col = (prev.mv8, syn.col_ref, syn.col_inter.astype(np.uint8),
                        prev.poc, syn.col_ref_pocs)
             self.ref_avail = min(nrefs, avail + 1)
-            sw = write_slice_header(
-                cfg, P_SLICE, idr=False, poc=self.poc,
-                ref_delta_poc=poc_step, max_merge=syn.max_merge,
-                slice_qp=qp,
-                weights=None if weights_hdr is None else weights_hdr[i],
-                num_ref=syn.num_ref, tmvp=cfg.tmvp)
-            payload, tail_val, tail_bits = encode_slice_native(
-                1, syn.depth8, syn.coeff_y, syn.coeff_cb, syn.coeff_cr,
-                w, h, cfg.log2_ctu, cfg.log2_min_cu,
-                init_states(P_SLICE, qp), mv8=syn.mv8,
-                max_merge=syn.max_merge, sign_hiding=cfg.sign_hiding,
-                sao_params=syn.sao_params, qp_map=syn.qp_map, slice_qp=qp,
-                mode8=syn.mode8, intra8=syn.intra8, tusplit8=syn.tusplit8,
-                rqt_inter=cfg.rqt_inter, ref8=syn.ref8,
-                num_ref=syn.num_ref, ref_pocs_l0=syn.ref_pocs, poc=syn.poc,
-                tmvp=cfg.tmvp, col=col)
-            sw.write_bytes(payload)
-            if tail_bits:
-                sw.write(tail_val, tail_bits)
-            sw.align_one()
-            stream = annexb_stream([(NalUnitType.TRAIL_R, sw.get_bytes(),
-                                     b"")])
+            rbsp, pre = self._code_slice(
+                P_SLICE, syn, qp,
+                dict(idr=False, poc=self.poc, ref_delta_poc=poc_step,
+                     max_merge=syn.max_merge, slice_qp=qp,
+                     weights=None if weights_hdr is None
+                     else weights_hdr[i],
+                     num_ref=syn.num_ref, tmvp=cfg.tmvp),
+                dict(mv8=syn.mv8, max_merge=syn.max_merge,
+                     sign_hiding=cfg.sign_hiding, sao_params=syn.sao_params,
+                     qp_map=syn.qp_map, slice_qp=qp, mode8=syn.mode8,
+                     intra8=syn.intra8, tusplit8=syn.tusplit8,
+                     rqt_inter=cfg.rqt_inter, ref8=syn.ref8,
+                     num_ref=syn.num_ref, ref_pocs_l0=syn.ref_pocs,
+                     poc=syn.poc, tmvp=cfg.tmvp, col=col))
+            stream = annexb_stream(self._picture_nals(
+                NalUnitType.TRAIL_R, rbsp, pre, recons[i]))
             self.frame_count += 1
             self.stats.add("P", len(stream) * 8, qp, poc=self.poc, syn=syn)
             self._last_p_syn = syn     # TMVP collocated for the next P
@@ -469,27 +501,35 @@ class IntraEncoder:
                 np.stack([pad_plane(np.asarray(f[2]), h // 2, w // 2)
                           for f in frames]))
 
-    def _submit(self, frames, qp: int, need_recon: bool, qp_maps=None):
+    def _submit(self, frames, qp: int, need_recon: bool, qp_maps=None,
+                seeds16=None):
+        """Enqueue a P chunk; the recon comes back when asked for or
+        when the hash SEI needs it."""
         if self.ref.y.ndim != 3:
             self.ref_avail = 1       # a single picture: 1 distinct ref
         wps, wvecs = self._pgop_weights(frames)
+        need_recon = need_recon or bool(self.cfg.hash_sei)
         pend = submit_pgop_gpu(*self._stack(frames), self.ref, self.cfg, qp,
                                need_recon=need_recon,
                                me_range=self.cfg.me_range, qp_maps=qp_maps,
-                               weights=wvecs, device=self.device)
+                               seeds16=seeds16, weights=wvecs,
+                               device=self.device)
         self.ref = pend.last_ref
         self.last_src = frames[-1]
         return pend, wps
 
     def encode_pgop(self, frames, qp: int | None = None,
                     need_recon: bool = True, poc_step: int = 1,
-                    qp_maps: np.ndarray | None = None) -> list[FrameResult]:
+                    qp_maps: np.ndarray | None = None,
+                    seeds16: np.ndarray | None = None) -> list[FrameResult]:
         """One P chunk against the current reference: device pipeline,
         then per-frame native CABAC. qp_maps: (F, ncty, nctx) per-CTU
-        QP maps (dQP; cfg.dqp_enabled)."""
+        QP maps (dQP; cfg.dqp_enabled); seeds16: (F, by16, bx16, 2)
+        full-pel MVs of an earlier pass that replace the coarse search
+        (analysis reuse)."""
         assert self.ref is not None, "no reference: encode an I frame first"
         qp = self.cfg.qp if qp is None else qp
-        pend, wps = self._submit(frames, qp, need_recon, qp_maps)
+        pend, wps = self._submit(frames, qp, need_recon, qp_maps, seeds16)
         syns, recons, _ = collect_pgop_gpu(pend)
         return self._emit_p_frames(syns, recons, qp, poc_step,
                                    weights_hdr=wps)
@@ -613,25 +653,20 @@ class IntraEncoder:
         qp_map = syn.qp_map if getattr(syn, "qp_map", None) is not None \
             else (np.full((cfg.ctu_rows, cfg.ctu_cols), qp, np.int32)
                   if cfg.dqp_enabled else None)
-        sw = write_slice_header(
-            cfg, B_SLICE, idr=False, poc=poc, slice_qp=qp,
-            ref_delta_poc=poc - poc_refs[0],
-            ref_delta_poc_after=poc_refs[1] - poc, max_merge=syn.max_merge,
-            rps_neg=rps_neg, rps_pos=rps_pos)
         mvb = syn.mv8.reshape(syn.mv8.shape[0], syn.mv8.shape[1], 4)
-        payload, tail_val, tail_bits = encode_slice_native(
-            0, syn.depth8, syn.coeff_y, syn.coeff_cb, syn.coeff_cr,
-            cfg.width_padded, cfg.height_padded, cfg.log2_ctu,
-            cfg.log2_min_cu, init_states(B_SLICE, qp), mvb=mvb, pf8=syn.pf8,
-            poc=poc, poc_refs=poc_refs, max_merge=syn.max_merge,
-            sign_hiding=cfg.sign_hiding, sao_params=syn.sao_params,
-            qp_map=qp_map, slice_qp=qp, rqt_inter=cfg.rqt_inter)
-        sw.write_bytes(payload)
-        if tail_bits:
-            sw.write(tail_val, tail_bits)
-        sw.align_one()
+        rbsp, pre = self._code_slice(
+            B_SLICE, syn, qp,
+            dict(idr=False, poc=poc, slice_qp=qp,
+                 ref_delta_poc=poc - poc_refs[0],
+                 ref_delta_poc_after=poc_refs[1] - poc,
+                 max_merge=syn.max_merge, rps_neg=rps_neg, rps_pos=rps_pos),
+            dict(mvb=mvb, pf8=syn.pf8, poc=poc, poc_refs=poc_refs,
+                 max_merge=syn.max_merge, sign_hiding=cfg.sign_hiding,
+                 sao_params=syn.sao_params, qp_map=qp_map, slice_qp=qp,
+                 rqt_inter=cfg.rqt_inter))
         nal_type = NalUnitType.TRAIL_R if is_ref else NalUnitType.TRAIL_N
-        stream = annexb_stream([(nal_type, sw.get_bytes(), b"")])
+        stream = annexb_stream(self._picture_nals(nal_type, rbsp, pre,
+                                                  recon))
         self.frame_count += 1
         self.stats.add("B", len(stream) * 8, qp, poc=poc, syn=syn)
         return FrameResult(bitstream=stream, recon=recon, syntax=syn,

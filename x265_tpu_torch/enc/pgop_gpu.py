@@ -1130,7 +1130,7 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
                 deblock: bool, sao: bool, sign_hiding: bool, me_range: int,
                 intra_ii: bool, psy_rd: float, weight_denom: int, rqt: bool,
                 nrefs: int, rdoq: bool = False, lowpass: bool = False,
-                nr: int = 0, nr_state=None, qp_ctu=None):
+                nr: int = 0, nr_state=None, qp_ctu=None, seed16=None):
     """One P frame. refs: (ry, rcb, rcr) (nrefs, ...) int32 stacks of
     the nrefs most recent reference pictures at the scan size
     (CTU multiples, edge-padded), slot 0 the newest; oy/ocb/ocr int32
@@ -1138,7 +1138,8 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
     rdoq, lowpass: the RD quantiser and the lowpass DCT; nr: the noise
     reduction strength, with nr_state the carried (sums, counts)
     (_nr_state_init); qp_ctu: the (ncty, nctx) per-CTU QP map at the
-    scan size (dQP) or None.
+    scan size (dQP) or None; seed16: the (h // 16, w // 16, 2) int32
+    full-pel seeds of analysis reuse, or None.
     Returns (fields, next references, next NR state or None): fields =
     (depth8, mv8, cf_y, cf_cb, cf_cr, intra8, imode8, tusplit8, ref8,
     sao, rec_y, rec_cb, rec_cr), sao (3, ncty, nctx, 6) int32 or
@@ -1160,8 +1161,22 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
     weighted = wvec is not None
     oy_s = inverse_weight_plane(oy, wvec[0], wvec[1], weight_denom,
                                 bit_depth) if weighted else oy
-    cmv16, cmv32, ref16, ref32, zy, zc = _select_refs(
-        oy_s, ry_s, rcb_s, rcr_s, lam_i, coarse_pen, nrefs)
+    if seed16 is not None:
+        # analysis reuse (readAnalysisFile analog, encoder.cpp:4324): a
+        # prior pass's full-pel MVs replace the coarse search, and every
+        # block predicts from reference 0 (no multi-reference selection)
+        nsel = 1
+        cmv16, cmv32 = seed16, None
+        ref16 = torch.zeros((h // 16, w // 16), dtype=torch.int32,
+                            device=dev)
+        ref32 = torch.zeros((h // 32, w // 32), dtype=torch.int32,
+                            device=dev)
+        zy = {16: ry_s[0], 32: ry_s[0]}
+        zc = {16: (rcb_s[0], rcr_s[0]), 32: (rcb_s[0], rcr_s[0])}
+    else:
+        nsel = nrefs
+        cmv16, cmv32, ref16, ref32, zy, zc = _select_refs(
+            oy_s, ry_s, rcb_s, rcr_s, lam_i, coarse_pen, nrefs)
     # the references stacked vertically, one padded plane per component
     ry_pad = torch.cat([pad_ref(p.to(torch.uint8), pad_y) for p in ry_s])
     cpad2 = torch.stack([
@@ -1171,7 +1186,7 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
     # the selections; with one reference they are all 0, which None
     # says without the weights' per-block masks
     sel = dict(ref16=ref16.reshape(-1), ref32=ref32.reshape(-1)) \
-        if nrefs > 1 else {}
+        if nsel > 1 else {}
     meres, seeds = me_all_sizes(oy, ry_pad, cmv16, lam_i, radius=me_range,
                                 pad=pad_y, bit_depth=bit_depth,
                                 cur_search=oy_s if weighted else None,
@@ -1201,7 +1216,7 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
 
     res = _mc_recon_all(
         oy, ocb, ocr, mvs, lam2, qp, qpc, bit_depth, sign_hiding, rh, rw,
-        preds=preds, cpreds=cpreds, refs_grid=refs_grid, nrefs=nrefs,
+        preds=preds, cpreds=cpreds, refs_grid=refs_grid, nrefs=nsel,
         psy_rd=psy_rd, rqt=rqt, alt8_cost=icost8_m, ctu=ctu, rdoq=rdoq,
         lowpass=lowpass,
         nr_offsets=_nr_offsets(nr_state, nr) if nr else None,
@@ -1301,15 +1316,9 @@ def ctu_grid(qp_map: np.ndarray, ry: int, rx: int) -> np.ndarray:
 def check_pgop_config(cfg: EncoderConfig) -> None:
     """Raise for every option the P-chunk path of this package does not
     implement (NotImplementedError naming its ROADMAP queue item)."""
-    unported = [
-        (cfg.wpp, "WPP", 17),
-        (cfg.bit_depth != 8, "10-bit", 19),
-        (cfg.hash_sei, "picture-hash SEI", 24),
-    ]
-    for cond, what, item in unported:
-        if cond:
-            raise NotImplementedError(
-                f"{what}: not ported yet (ROADMAP queue 1 item {item})")
+    if cfg.bit_depth != 8:
+        raise NotImplementedError(
+            "10-bit: not ported yet (ROADMAP queue 1 item 19)")
     if cfg.bframes > 0 and cfg.ctu_size == 64:
         raise NotImplementedError(B_CTU64)
 
@@ -1335,11 +1344,10 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
     (F, ncty, nctx) per-CTU QP maps (dQP), clipped to 0..51 and
     edge-extended to the scan's CTU grid; flat at qp when
     cfg.dqp_enabled and none are given. Each frame's coded map is
-    syn.qp_map."""
+    syn.qp_map. seeds16: (F, by16, bx16, 2) full-pel MVs of an earlier
+    pass (analysis reuse) that replace the coarse search; with them
+    every block predicts from reference 0."""
     check_pgop_config(cfg)
-    if seeds16 is not None:
-        raise NotImplementedError(
-            "analysis-reuse seeds: not ported yet (ROADMAP queue 1 item 24)")
     dev = resolve_device(device)
     if isinstance(ref, DeviceRef) and ref.y.device.type != dev.type:
         raise ValueError(f"reference on {ref.y.device}, device {dev} "
@@ -1397,6 +1405,14 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
         # grid, are edge-extended to the scan's padded CTU grid
         qmj = np.stack([ctu_grid(m, ncty_p, nctx_p) for m in qp_maps])
         qmaps_t = torch.as_tensor(qmj, device=dev)
+    seeds_t = None
+    if seeds16 is not None:
+        # (F, by16, bx16, 2) seeds at the coded size, zero-padded to the
+        # scan's 16-grid
+        sj = np.zeros((f, hp // 16, wp // 16, 2), np.int32)
+        sv = np.asarray(seeds16, np.int32)
+        sj[:, :sv.shape[1], :sv.shape[2]] = sv[:, :hp // 16, :wp // 16]
+        seeds_t = torch.as_tensor(sj, device=dev)
     outs = []
     # the NR state starts at zero on every submit, as the reference's
     # scan starts its carry
@@ -1411,7 +1427,8 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
             intra_ii=cfg.intra_in_inter, psy_rd=float(cfg.psy_rd),
             weight_denom=6, rqt=bool(cfg.rqt_inter), nrefs=nrefs,
             rdoq=bool(cfg.rdoq), lowpass=bool(cfg.lowpass_dct), nr=nr,
-            nr_state=nr_state, qp_ctu=None if qmj is None else qmaps_t[i])
+            nr_state=nr_state, qp_ctu=None if qmj is None else qmaps_t[i],
+            seed16=None if seeds_t is None else seeds_t[i])
         outs.append(fields)
     last_ref = DeviceRef(*(p[..., :hh, :ww].to(torch.uint8).contiguous()
                            for p, hh, ww in ((cur[0], h, w),

@@ -98,6 +98,9 @@ def get_lib() -> ctypes.CDLL:
             ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int,
             ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int)]
+        lib.encode_slice_wpp.restype = ctypes.c_int
+        lib.encode_slice_wpp.argtypes = lib.encode_slice.argtypes[:-2] + \
+            [ctypes.c_void_p, ctypes.c_int]
         lib.ctx_layout_checksum.restype = ctypes.c_int
         assert lib.ctx_layout_checksum() == _layout_checksum(), \
             "native context layout out of sync — rebuild failed?"
@@ -154,33 +157,50 @@ def _make_pext(ref8, num_ref, tmvp, ref_pocs, col):
     return ctypes.byref(px), keep
 
 
+def _slice_args(slice_type, depth8, coeff_y, coeff_cb, coeff_cr, w, h,
+                log2_ctu, log2_min_cu, init_states, *, mode8=None, mv8=None,
+                max_merge=2, sign_hiding=False, cmode8=None, sao_params=None,
+                nxn8=None, mode4=None, qp_map=None, slice_qp=26, intra8=None,
+                mvb=None, pf8=None, poc=0, poc_refs=(0, 0), lossless=False,
+                tusplit8=None, rqt_inter=False, ref8=None, num_ref=1,
+                ref_pocs_l0=None, tmvp=False, col=None):
+    """The arguments encode_slice and encode_slice_wpp share, up to the
+    PExtC pointer, and the arrays they point into (kept alive by the
+    caller until the call returns)."""
+    keep = []
+
+    def ptr(a, dt):
+        if a is None:
+            return None
+        c = np.ascontiguousarray(a, dtype=dt)
+        keep.append(c)
+        return c.ctypes.data
+
+    st = np.ascontiguousarray(init_states, dtype=np.uint8)
+    keep.append(st)
+    saos = [None] * 3 if sao_params is None else sao_params
+    pext, pkeep = _make_pext(ref8, num_ref, tmvp and slice_type == 1,
+                             ref_pocs_l0, col)
+    keep.extend(pkeep)
+    args = [
+        slice_type, ptr(depth8, np.uint8), ptr(mode8, np.uint8),
+        ptr(mv8, np.int32), ptr(mvb, np.int32), ptr(pf8, np.uint8),
+        poc, poc_refs[0], poc_refs[1], max_merge,
+        1 if sign_hiding else 0, 1 if lossless else 0, ptr(cmode8, np.uint8),
+        ptr(coeff_y, np.int16), ptr(coeff_cb, np.int16),
+        ptr(coeff_cr, np.int16), *(ptr(p, np.int32) for p in saos),
+        ptr(nxn8, np.uint8), ptr(mode4, np.uint8), ptr(intra8, np.uint8),
+        ptr(tusplit8, np.uint8), 1 if rqt_inter else 0,
+        ptr(qp_map, np.int32), slice_qp,
+        w, h, log2_ctu, log2_min_cu, st.ctypes.data, len(st), pext]
+    return args, keep
+
+
 def encode_slice_native(slice_type: int, depth8: np.ndarray,
                         coeff_y: np.ndarray, coeff_cb: np.ndarray,
                         coeff_cr: np.ndarray, w: int, h: int,
                         log2_ctu: int, log2_min_cu: int,
-                        init_states: np.ndarray, *,
-                        mode8: np.ndarray | None = None,
-                        mv8: np.ndarray | None = None, max_merge: int = 2,
-                        sign_hiding: bool = False,
-                        cmode8: np.ndarray | None = None,
-                        sao_params=None,
-                        nxn8: np.ndarray | None = None,
-                        mode4: np.ndarray | None = None,
-                        qp_map: np.ndarray | None = None,
-                        slice_qp: int = 26,
-                        intra8: np.ndarray | None = None,
-                        mvb: np.ndarray | None = None,
-                        pf8: np.ndarray | None = None,
-                        poc: int = 0,
-                        poc_refs: tuple[int, int] = (0, 0),
-                        lossless: bool = False,
-                        tusplit8: np.ndarray | None = None,
-                        rqt_inter: bool = False,
-                        ref8: np.ndarray | None = None,
-                        num_ref: int = 1,
-                        ref_pocs_l0=None,
-                        tmvp: bool = False,
-                        col=None
+                        init_states: np.ndarray, **kw
                         ) -> tuple[bytes, int, int]:
     """Native slice encoder for I (mode8, NxN via nxn8/mode4), P
     (mv8, intra8, tusplit8) and B slices (mvb (n8y, n8x, 4) the L0 and
@@ -190,48 +210,44 @@ def encode_slice_native(slice_type: int, depth8: np.ndarray,
     cu_transquant_bypass on every CU. SAO: sao_params = (p_y, p_cb,
     p_cr) per-CTU parameters. Multi-reference P: ref8,
     num_ref, ref_pocs_l0; TMVP: tmvp and col = (col_mv, col_ref8,
-    col_inter8, col_poc, col_ref_pocs). Returns (payload_bytes,
-    tail_value, tail_nbits)."""
+    col_inter8, col_poc, col_ref_pocs). The keywords are
+    _slice_args's. Returns (payload_bytes, tail_value, tail_nbits)."""
     lib = get_lib()
-
-    def arr(a, dt):
-        return None if a is None else np.ascontiguousarray(a, dtype=dt)
-
-    def ptr(a):
-        return None if a is None else a.ctypes.data
-
-    d8 = arr(depth8, np.uint8)
-    cy = arr(coeff_y, np.int16)
-    cb = arr(coeff_cb, np.int16)
-    cr = arr(coeff_cr, np.int16)
-    st = arr(init_states, np.uint8)
-    m8 = arr(mode8, np.uint8)
-    mv = arr(mv8, np.int32)
-    cm8 = arr(cmode8, np.uint8)
-    nx8 = arr(nxn8, np.uint8)
-    m4 = arr(mode4, np.uint8)
-    i8 = arr(intra8, np.uint8)
-    ts8 = arr(tusplit8, np.uint8)
-    mvbc = arr(mvb, np.int32)
-    pfc = arr(pf8, np.uint8)
-    qm = arr(qp_map, np.int32)
-    saos = [None] * 3 if sao_params is None else \
-        [arr(p, np.int32) for p in sao_params]
+    args, _keep = _slice_args(slice_type, depth8, coeff_y, coeff_cb,
+                              coeff_cr, w, h, log2_ctu, log2_min_cu,
+                              init_states, **kw)
     cap = w * h * 4 + 4096
     out = np.empty(cap, dtype=np.uint8)
     tail_val = ctypes.c_uint32(0)
     tail_bits = ctypes.c_int(0)
-    pext, _keep = _make_pext(ref8, num_ref, tmvp and slice_type == 1,
-                             ref_pocs_l0, col)
-    n = lib.encode_slice(
-        slice_type, ptr(d8), ptr(m8), ptr(mv), ptr(mvbc), ptr(pfc),
-        poc, poc_refs[0], poc_refs[1], max_merge,
-        1 if sign_hiding else 0, 1 if lossless else 0, ptr(cm8),
-        ptr(cy), ptr(cb), ptr(cr), *(ptr(p) for p in saos),
-        ptr(nx8), ptr(m4), ptr(i8), ptr(ts8),
-        1 if rqt_inter else 0, ptr(qm), slice_qp,
-        w, h, log2_ctu, log2_min_cu, ptr(st), len(st), pext,
-        ptr(out), cap, ctypes.byref(tail_val), ctypes.byref(tail_bits))
+    n = lib.encode_slice(*args, out.ctypes.data, cap, ctypes.byref(tail_val),
+                         ctypes.byref(tail_bits))
     if n < 0:
         raise RuntimeError("native slice encoder overflowed output buffer")
     return out[:n].tobytes(), int(tail_val.value), int(tail_bits.value)
+
+
+def encode_slice_wpp_native(slice_type: int, depth8: np.ndarray,
+                            coeff_y: np.ndarray, coeff_cb: np.ndarray,
+                            coeff_cr: np.ndarray, w: int, h: int,
+                            log2_ctu: int, log2_min_cu: int,
+                            init_states: np.ndarray, **kw) -> list[bytes]:
+    """WPP slice data: one byte-aligned substream per CTU row
+    (entropy_coding_sync; frameencoder.cpp:1509 context rule), each
+    ended by its own CABAC flush. The keywords are encode_slice_native's."""
+    lib = get_lib()
+    args, _keep = _slice_args(slice_type, depth8, coeff_y, coeff_cb,
+                              coeff_cr, w, h, log2_ctu, log2_min_cu,
+                              init_states, **kw)
+    rows = (h + (1 << log2_ctu) - 1) >> log2_ctu
+    cap = w * h * 4 + 4096 + rows * 8
+    out = np.empty(cap, dtype=np.uint8)
+    sub_lens = np.zeros(rows, dtype=np.int32)
+    n = lib.encode_slice_wpp(*args, out.ctypes.data, cap,
+                             sub_lens.ctypes.data, rows)
+    if n < 0:
+        raise RuntimeError("native WPP slice encoder overflowed its output "
+                           "buffer")
+    ends = np.cumsum(sub_lens)
+    assert ends[-1] == n
+    return [out[e - ln:e].tobytes() for e, ln in zip(ends, sub_lens)]
