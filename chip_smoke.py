@@ -9,7 +9,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      search instances' SASS (VABSDIFF4 per current-row word, and per
      window row of the unrolled walk its SADs, funnel shifts and shared
      loads); measure the issue rate per SM clock of VABSDIFF4, SHF and
-     IMAD, with FFMA as the yardstick (csrc/probes/int_rates.cu);
+     IMAD, with FFMA as the yardstick, and of the two 16-bit SADs (the
+     packed vabsdiff2 and the scalar half-word vabsdiff the Main10
+     search uses; ptxas expands both into integer instructions)
+     (csrc/probes/int_rates.cu);
   2. kernel vs plain: the window-gather kernel against its plain PyTorch
      version at the four bench-path window shapes, uint8 and uint16, and
      at the four fast/zerolatency-path shapes (three references stacked
@@ -30,14 +33,19 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      fast/zerolatency path's side 11 (me_range 5, windows 34 and 50),
      untimed at the odd me_range 7 (side 15, windows 38 and 54, rows not
      4-byte aligned) and at the presets' extremes, me_range 2 and 12
-     (sides 5 and 25), exact equality, timed beside its bound; every
-     kernel timing taken 3 times in turns, with its spread;
+     (sides 5 and 25), exact equality, timed beside its bound; the
+     Main10 instances: the uint16 gather at the medium/zerolatency
+     shapes (the Main10 CLI cell's) and the uint16 searches at sides
+     21, 11, 15, 5 and 25 on random, near-flat and flat 10-bit windows,
+     exact, timed at side 21 beside their bounds (the half-word
+     vabsdiff's measured rate); every kernel timing taken 3 times in
+     turns, with its spread;
   3. card == CPU: the same clips encoded on the card and on the CPU give
      byte-identical streams (bench configuration: 64x96 1 I + 6 P at
      me_range 10 and at me_range 7, then I + 1 P at the size in
      CARD_CPU_SIZE; fast/zerolatency: a 64x96 strobe clip, 1 I + 6 P in
      chunks of 2, where some blocks must predict from reference 1 or
-     later and some CTU must have SAO on, then 1080p I + 2 P;
+     later and some CTU must have SAO on, then 1080p I + 1 P;
      medium/zerolatency: a 72x128 clip, 1 I + 6 P in chunks of 2, where
      some CU must be a depth-0 64x64 CU and some block must predict
      from reference 1 or later, then 1080p I + 1 P; placebo/zerolatency
@@ -45,11 +53,11 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      5 P in one chunk, whose last P frame must list five references;
      noise reduction 600 and the lowpass DCT: a 64x96 clip, 1 I + 4 P
      in chunks of 2; slow/zerolatency (CTU 64, RDOQ, 4 references):
-     1080p I + 2 P);
+     1080p I + 1 P);
   4. the bench path at full size: 1080p, 1 I (QP 29) + 24 P (CQP 32),
-     pipelined chunks of 8, one warm-up pass, one timed pass; in the
-     timed pass the gather must have launched 4 times per P frame and
-     the search 2 times;
+     pipelined chunks of 8, one warm-up pass over its first chunk (1 I
+     + 8 P), one timed pass; in the timed pass the gather must have
+     launched 4 times per P frame and the search 2 times (all uint8);
   5. one torch.profiler trace of a bench-path P chunk of PROFILE_P
      frames: the device busy time per P frame, the ten device ops that
      take the most time, then the ops the integer search used to launch
@@ -76,21 +84,22 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      clip, 1 I + 8 frames in mini-GOPs, where some B cells must be
      bi-predicted and some L1-only, on the 64x96 clip's first mini-GOP
      with RDOQ on, and on 1080p I + one mini-GOP; then
-     the bench clip, one warm-up pass and one timed pass, whose first
-     frames must reproduce the 1080p leg; in the timed pass the gather
+     the bench clip, one timed pass (the 1080p leg warms it up), whose
+     first frames must reproduce the 1080p leg; in the timed pass the gather
      must have launched 4 times per anchor P and 8 per B frame, the
      search 2 and 4; then one profile of a mini-GOP (device rows and
      the ten ops with the most host time);
   10. per-CTU QP: card == CPU, streams and QP maps, on encode_sequence
      with aq-mode 2 + cuTree under --preset medium --tune zerolatency
-     at 1080p (1 I + 2 P: the device lookahead, a host-recon I frame,
+     at 1080p (1 I + 1 P: the device lookahead, a host-recon I frame,
      dQP P chunks; some CTU must code a QP other than its slice's), a
      64x96 --preset fast B loop with aq-mode 2, a 64x96 lossless I
      frame and a CTU-16 I frame; then that aq_cutree path at full size
-     (the bench clip through encode_sequence, one warm-up pass, one
-     timed pass: fps, the I frame's seconds with its host-recon split,
-     the lookahead's seconds per GOP, seconds per P frame, bytes, the
-     QP maps' min, max, mean and share off the slice QP; the gather
+     (the bench clip through encode_sequence, one timed pass, the
+     1080p leg its warm-up: fps, the I frame's seconds with its
+     host-recon split, the lookahead's seconds per GOP, seconds per P
+     frame, bytes, the QP maps' min, max, mean and share off the slice
+     QP; the gather
      must have launched 4 times per P frame and the search 2), one
      profile of its P chunk with its maps, and the device's busy and
      idle shares of its P-frame wall;
@@ -99,7 +108,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      /zerolatency ABR + VBV with the hash, AUD and length-prefixed
      units; a two-pass pair; --analysis-save then --analysis-load;
      --param wpp=1; a two-rung AbrEncoder), each its output bytes, csv
-     rows (but wall_s) and stats files; a 1080p leg of 1 I + 2 P under
+     rows (but wall_s) and stats files; a 1080p leg of 1 I + 1 P under
      the timed pass's flags (bytes and QPs); then the bench clip as a
      25-frame y4m through one timed pass of --preset medium --tune
      zerolatency --bitrate 3000 --vbv-maxrate 3000 --vbv-bufsize 6000
@@ -108,10 +117,26 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      against the recon; the gather must have launched 4 times per P
      frame and the search 2); scale_frame 1080p -> 1280x720 card == CPU
      with its device time;
-  12. the kernels line (one JSON object; launches summed over the timed
-     passes of the seven paths, and per path; times and bounds per P
-     frame at the bench path's shapes, as its ms_of says), the card
-     line, and the last line
+  12. Main10: card == CPU on the 10-bit legs (synth10_clip: the I
+     frame at CTU 32; an IPPP weightp sequence with the hash;
+     --preset slow --tune zerolatency --no-sao 1 I + 3 P at 72x128,
+     CTU 64 with 4 references and RDOQ; a --preset fast --no-sao
+     hierarchical-B mini-GOP; encode_sequence with aq-mode 2 + cuTree;
+     the CLI on a 420p10 y4m with the HDR10 flags and --hash 1); then
+     the bench clip lifted to 10 bits (synth10_1080p) as a 25-frame
+     420p10 y4m through one timed pass of CLI_MAIN10 (--preset medium
+     --tune zerolatency --no-sao, ABR 3000 + VBV, --hash 1, HDR10):
+     fps, kb/s within 5% of 3000, QP range, no VBV underflow, I and P
+     seconds, the SPS's Main10 profile and bit depth 10, every MD5 SEI
+     checked against the 10-bit recon, the uint16 gather 4 times and
+     the uint16 searches 2 times per P frame and no uint8 instance;
+     the CPU's 1 I + 1 P under the same flags against the pass's;
+  13. the kernels line (one JSON object, one entry per kernel instance:
+     the gather's uint8 and uint16, the pair and 32-block searches'
+     uint8 and uint16; launches summed over the timed passes of the
+     paths that run each, and per path; times and bounds per P frame at
+     the bench path's shapes for uint8 and the Main10 path's for
+     uint16, as its ms_of says), the card line, and the last line
      {"ok": true, "device": {...}}.
 Imports neither JAX nor the x265_tpu reference package.
 """
@@ -125,6 +150,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -290,6 +316,76 @@ def medium_clip(n, h=72, w=128, pan=2, seed=7, split=96):
         out.append(tuple(np.clip(p, 0, 255).astype(np.uint8)
                          for p in (y, *c)))
     return out
+
+
+@lru_cache(maxsize=None)
+def _low_bits(seed, shapes):
+    """Two-bit smooth fields of the given plane shapes: seeded noise,
+    blurred, then ranked into four equal shares."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in shapes:
+        f = _blur(rng.integers(0, 256, shape).astype(np.float64), 2)
+        rank = np.empty(f.size, np.int64)
+        rank[f.ravel().argsort(kind="stable")] = np.arange(f.size)
+        out.append((rank * 4 // f.size).reshape(shape).astype(np.uint16))
+    return tuple(out)
+
+
+def to_10bit(frame, seed, shift=0):
+    """A 10-bit version of an 8-bit (y, cb, cr) frame: each sample
+    shifted up two bits, its two low bits from a seeded smooth field
+    (rolled `shift` luma columns with the picture), so all ten bits
+    carry content."""
+    lows = _low_bits(seed, tuple(p.shape for p in frame))
+    return tuple((p.astype(np.uint16) << 2) |
+                 np.roll(low, shift if k == 0 else shift // 2, axis=1)
+                 for k, (p, low) in enumerate(zip(frame, lows)))
+
+
+def synth10_clip(n, h=64, w=64, seed=7):
+    """The Main10 test clip (tests/test_torch_main10.py and the card ==
+    CPU legs encode it): medium_clip at h x w (a panning smooth part
+    and, right of three quarters of the width, two alternating
+    textures) lifted to 10 bits by to_10bit."""
+    frames = medium_clip(n, h, w, seed=seed, split=w * 3 // 4 // 8 * 8)
+    return [to_10bit(f, seed + 1, shift=2 * k) for k, f in enumerate(frames)]
+
+
+def synth10_1080p(i: int):
+    """Frame i of the 10-bit bench clip: synth_1080p's frame lifted by
+    to_10bit, its low bits panning with the picture."""
+    return to_10bit(synth_1080p(i % 3, shift=2 * i), i % 3, shift=2 * i)
+
+
+def sps_fields(stream: bytes) -> dict:
+    """general_profile_idc and the luma and chroma bit depths of the
+    first SPS of an Annex-B stream (one temporal layer)."""
+    from x265_tpu_torch.bitstream.nal import split_annexb
+    rbsp = next(rb for t, rb, _ in split_annexb(stream) if int(t) == 33)
+    bits = "".join(f"{b:08b}" for b in rbsp)
+    pos = 8 + 96                     # vps id .. temporal nesting; the PTL
+
+    def ue():
+        nonlocal pos
+        z = 0
+        while bits[pos] == "0":
+            z += 1
+            pos += 1
+        v = int(bits[pos:pos + z + 1], 2) - 1
+        pos += z + 1
+        return v
+    ue()                             # sps id
+    if ue() == 3:                    # chroma_format_idc
+        pos += 1
+    ue(), ue()                       # width, height
+    pos += 1
+    if bits[pos - 1] == "1":         # conformance window
+        for _ in range(4):
+            ue()
+    luma = ue() + 8
+    return {"profile_idc": rbsp[1] & 31, "bit_depth_luma": luma,
+            "bit_depth_chroma": ue() + 8}
 
 
 def b_clip(nf, h=64, w=96, seed=7):
@@ -617,10 +713,12 @@ def touched_pixels(hh, ww, ys_t, xs_t, win) -> int:
     return int((d.cumsum(0).cumsum(1)[:hh, :ww] > 0).sum())
 
 
-def phase_gather(shapes, dtypes=(torch.uint8, torch.uint16), timing=True):
+def phase_gather(shapes, dtypes=(torch.uint8, torch.uint16), timing=True,
+                 agg_dtype=torch.uint8):
     """Gather kernel vs plain at one path's shapes; returns the per-frame
-    aggregate numbers (uint8, the main path's dtype) for the kernels
-    line. timing=False: exactness only."""
+    aggregate numbers of the path's dtype (agg_dtype: uint8, or uint16
+    on the Main10 path) for the kernels line. timing=False: exactness
+    only."""
     from x265_tpu_torch.ops.me_win import gather_windows, \
         gather_windows_plain
     rng = np.random.default_rng(2024)
@@ -682,7 +780,7 @@ def phase_gather(shapes, dtypes=(torch.uint8, torch.uint16), timing=True):
                    "beats_library": ms < lib_ms,
                    "max_abs_err": err, "launches_per_p_frame": 1}
             print(json.dumps(rec), flush=True)
-            if dt == torch.uint8:      # the main path's dtype
+            if dt == agg_dtype:        # the path's dtype
                 agg["ms"] += ms
                 agg["plain_ms"] += plain_ms
                 agg["library_ms"] += lib_ms
@@ -691,54 +789,71 @@ def phase_gather(shapes, dtypes=(torch.uint8, torch.uint16), timing=True):
     return agg
 
 
-def _search_case(rng, case, n, nb, side):
-    """Windows, current plane and penalties of one search row: random
-    samples; near-flat samples in {0, 1} with penalties in {0, 1, 2},
-    where many candidates tie at different indices; or flat samples and
-    penalties, where every candidate ties."""
+def _search_case(rng, case, n, nb, side, bits=8):
+    """Windows, current plane and penalties of one search row at `bits`
+    bits a sample (uint8 windows, uint16 at 10): random samples;
+    near-flat samples in {0, 1} with penalties in {0, 1, 2}, where many
+    candidates tie at different indices; or flat samples and penalties,
+    where every candidate ties."""
     s = n + side - 1 + 2 * LEAD
     pen_bs = (4 * nb, 4 * nb, nb, nb) if n == 16 else (nb, nb)
     if case == "flat":
-        win = np.full((nb, s, s), 3, np.uint8)
+        win = np.full((nb, s, s), 3, np.int16)
         cur = np.full(SCAN, 200, np.int32)
         pens = [np.full((side, b), 5, np.int32) for b in pen_bs]
     else:
-        hi, phi = (256, 400) if case == "random" else (2, 3)
-        win = rng.integers(0, hi, (nb, s, s)).astype(np.uint8)
+        hi, phi = (1 << bits, 400) if case == "random" else (2, 3)
+        win = rng.integers(0, hi, (nb, s, s)).astype(np.int16)
         cur = rng.integers(0, hi, SCAN).astype(np.int32)
         pens = [rng.integers(0, phi, (side, b)).astype(np.int32)
                 for b in pen_bs]
-    return [torch.from_numpy(a).cuda() for a in (win, cur, *pens)]
+    win_t = torch.from_numpy(win).cuda()
+    win_t = win_t.view(torch.uint16) if bits > 8 else win_t.to(torch.uint8)
+    return [win_t] + [torch.from_numpy(a).cuda() for a in (cur, *pens)]
 
 
-def phase_search():
+def phase_search(bits=8, sad_lanes_per_sm=INT32_LANES_PER_SM):
     """Search kernel vs plain at the main-path shapes; returns per path
-    ("bench", "medium" and "slow": side 21, "fast": side 11) the
-    per-frame aggregate numbers for the kernels line. The medium and
-    slow paths' rows are the bench path's random case again, each timed
-    in its own turn."""
+    ("bench", "medium" and "slow": side 21, "fast": side 11; at 10 bits
+    "main10": side 21, the uint16 instances) the per-frame aggregate
+    numbers, and each instance's ("by"), for the kernels line. The
+    medium and slow paths' rows are the bench path's random case again,
+    each timed in its own turn. sad_lanes_per_sm: the SAD instruction's
+    rate (VABSDIFF4 at 8 bits, 4 samples an instruction; the scalar
+    half-word vabsdiff at 10, one sample), lanes per SM clock."""
     from x265_tpu_torch.ops.me_win import int_search_pair_windows, \
         int_search_pair_windows_plain, int_search_windows, \
         int_search_windows_plain
-    rng = np.random.default_rng(2025)
+    rng = np.random.default_rng(2025 + bits)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_hz = sm_clock_hz()
-    lane_ops_per_s = sms * INT32_LANES_PER_SM * clock_hz
-    aggs = {path: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                   "ops_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0}
-            for path in ("bench", "fast", "medium", "slow")}
+    lane_ops_per_s = sms * sad_lanes_per_sm * clock_hz
+    px_per_sad = 4 if bits == 8 else 1
+    bps = 1 if bits == 8 else 2                # bytes a sample
     # (row, case, side, the path whose time it is, or None: untimed)
-    rows = (("random", "random", SIDE, "bench"),
-            ("near_flat", "near_flat", SIDE, None),
-            ("flat", "flat", SIDE, None),
-            ("random_me_range_5", "random", FAST_SIDE, "fast"),
-            ("random_medium", "random", SIDE, "medium"),
-            ("random_slow", "random", SIDE, "slow"),
-            *((row, "random", side, None) for row, side in OTHER_SIDES))
+    if bits == 8:
+        rows = (("random", "random", SIDE, "bench"),
+                ("near_flat", "near_flat", SIDE, None),
+                ("flat", "flat", SIDE, None),
+                ("random_me_range_5", "random", FAST_SIDE, "fast"),
+                ("random_medium", "random", SIDE, "medium"),
+                ("random_slow", "random", SIDE, "slow"),
+                *((row, "random", side, None) for row, side in OTHER_SIDES))
+    else:
+        rows = (("random", "random", SIDE, "main10"),
+                ("near_flat", "near_flat", SIDE, None),
+                ("flat", "flat", SIDE, None),
+                ("random_me_range_5", "random", FAST_SIDE, None),
+                ("near_flat_me_range_5", "near_flat", FAST_SIDE, None),
+                *((row, "random", side, None) for row, side in OTHER_SIDES))
+    aggs = {path: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "ops_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0,
+                   "by": {}}
+            for path in {r[3] for r in rows if r[3]}}
     for name, n, nb in SEARCH_SHAPES:
         by, bx = SCAN[0] // n, SCAN[1] // n
         for row, case, side, path in rows:
-            args = _search_case(rng, case, n, nb, side)
+            args = _search_case(rng, case, n, nb, side, bits)
             if n == 16:
                 def kern(a=args, sd=side):
                     return int_search_pair_windows(*a, by, bx, sd, LEAD)
@@ -767,23 +882,24 @@ def phase_search():
                                      f"index 0")
             for agg in aggs.values():
                 agg["max_abs_err"] = max(agg["max_abs_err"], err)
-            rec = {"search": name, "case": row, "units": nb, "n": n,
-                   "side": side, "max_abs_err": err}
+            rec = {"search": name, "bits": bits, "case": row, "units": nb,
+                   "n": n, "side": side, "max_abs_err": err}
             if path is not None:
                 agg = aggs[path]
                 t = timed({"kernel": kern, "plain": plain})
-                # bytes: windows, current plane (its low byte, all the
-                # search compares), penalties read once, results
-                # written once; operations: one 4-byte SAD and
-                # accumulate (__vsadu4) per 4 pixels per candidate, at
-                # one INT32 lane op per lane per clock
+                # bytes: windows, current plane (its low byte, or its
+                # low 16 bits at 10 bits: all the search compares),
+                # penalties read once, results written once;
+                # operations: one SAD-and-accumulate per px_per_sad
+                # pixels per candidate (VABSDIFF4 at 8 bits, the
+                # half-word vabsdiff at 10), at the SAD's measured rate
                 win_t, cur_t, *pens_t = args
-                nbytes = win_t.numel() + cur_t.numel() + \
+                nbytes = (win_t.numel() + cur_t.numel()) * bps + \
                     sum(a.numel() * a.element_size() for a in pens_t) + \
                     sum(g.numel() * 4 for g in got)
                 px_cand = nb * n * n * side * side
                 bytes_ms = nbytes / BYTES_PER_S * 1e3
-                ops_ms = px_cand / 4 / lane_ops_per_s * 1e3
+                ops_ms = px_cand / px_per_sad / lane_ops_per_s * 1e3
                 per_px_ms = 2 * px_cand / lane_ops_per_s * 1e3
                 rec.update({
                     "kernel_ms": t["kernel"][0],
@@ -802,6 +918,14 @@ def phase_search():
                 agg["bound_ms"] += max(bytes_ms, ops_ms)
                 agg["ops_ms"] += ops_ms
                 agg["bytes_ms"] += bytes_ms
+                agg["by"][name] = {
+                    "ms": t["kernel"][0], "plain_ms": t["plain"][0],
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "operations" if ops_ms >= bytes_ms
+                    else "bytes"}
+            for agg in aggs.values():
+                mx = agg["by"].setdefault(f"{name}_max_abs_err", 0)
+                agg["by"][f"{name}_max_abs_err"] = max(mx, err)
             print(json.dumps(rec), flush=True)
     for agg in aggs.values():
         agg["bound_by"] = "operations" \
@@ -811,53 +935,70 @@ def phase_search():
 
 def print_build_report(kernels) -> None:
     """ptxas's figures for every kernel instance, then the SASS of each
-    search instance: its VABSDIFF4 against one per current-row word of
-    its R candidates (pair: 16 rows x 4 words x R; 32-block, per lane of
-    2: 32 x 4 x R), and the unrolled walk over the window rows (from the
-    first VABSDIFF4 to the last) counted per window row: SADs, funnel
-    shifts, shared loads and all instructions."""
+    search instance: at 1 byte a sample its VABSDIFF4 against one per
+    current-row word of its R candidates (per lane: n rows x 4 words x
+    R), and the unrolled walk over the window rows (from the first SAD
+    to the last) counted per window row: SADs, funnel shifts, shared
+    loads and all instructions; at 2 bytes a sample (whose half-word
+    SAD ptxas expands into integer instructions: no VABSDIFF) its
+    instruction count and most frequent opcodes."""
     for name in kernels.sources():
         for row in kernels.resource_usage(name):
             print(json.dumps({"ptxas": name, **row}), flush=True)
     for fn, ops in kernels.sass_opcodes("int_search").items():
-        m = re.search(r"int_search_kernel<(\d+), (true|false), (\d+)>", fn)
+        m = re.search(r"int_search_kernel<(\d+), (true|false), (\d+), "
+                      r"(\d+)>", fn)
         if not m:
             continue
-        n, r = int(m.group(1)), int(m.group(3))
+        n, r, kb = int(m.group(1)), int(m.group(3)), int(m.group(4))
         cnt = Counter(ops)
-        sads = [i for i, op in enumerate(ops) if op == "VABSDIFF4"]
+        name = f"int_search_kernel<{n}, {m.group(2)}, {r}, {kb}>"
+        if kb == 2:
+            print(json.dumps({"sass": name, "instructions": len(ops),
+                              "current_words": n * 4 * r,
+                              "top": cnt.most_common(10)}), flush=True)
+            continue
+        sad = "VABSDIFF4"
+        sads = [i for i, op in enumerate(ops) if op == sad]
+        if not sads:
+            raise AssertionError(f"{fn}: no {sad} in its SASS")
         walk = Counter(ops[sads[0]:sads[-1] + 1])
         rows = r + n - 1
-        words = (16 * 4 if n == 16 else 32 * 4) * r
+        words = n * 4 * r
         print(json.dumps({
-            "sass": f"int_search_kernel<{n}, {m.group(2)}, {r}>",
-            "vabsdiff4": cnt["VABSDIFF4"], "current_words": words,
-            "vabsdiff4_per_word": cnt["VABSDIFF4"] / words,
+            "sass": name, "sad": sad, "sads": cnt[sad],
+            "current_words": words,
+            "sads_per_word": cnt[sad] / words,
             "instructions": len(ops), "walk_rows": rows,
             "walk_per_row": {"instructions": sum(walk.values()) / rows,
-                             "vabsdiff4": walk["VABSDIFF4"] / rows,
+                             "sads": walk[sad] / rows,
                              "shf": walk["SHF"] / rows,
                              "lds": walk["LDS"] / rows},
             "walk_top": walk.most_common(10)}), flush=True)
 
 
-RATE_OPS = ("vabsdiff4", "shf", "imad", "vabsdiff4_and_shf", "ffma")
+RATE_OPS = ("vabsdiff4", "shf", "imad", "vabsdiff4_and_shf", "ffma",
+            "vabsdiff2", "vabsdiff_h")
+# the SASS each chain must be made of; None: no instruction of its own
+# (vabsdiff2 is expanded by ptxas: its top opcodes are printed)
 RATE_SASS = {"vabsdiff4": ("VABSDIFF4",), "shf": ("SHF",),
              "imad": ("IMAD",), "vabsdiff4_and_shf": ("VABSDIFF4", "SHF"),
-             "ffma": ("FFMA",)}
+             "ffma": ("FFMA",), "vabsdiff2": None, "vabsdiff_h": None}
 
 
-def phase_int_rates() -> None:
+def phase_int_rates() -> dict:
     """Issue rate of the search's instructions on one SM, from the probe
     csrc/probes/int_rates.cu: one grid of 256-thread blocks at full
     occupancy, each thread 8 dependency chains of one instruction
     (VABSDIFF4 with its accumulator, SHF, IMAD, VABSDIFF4 and SHF
-    interleaved, and FFMA, whose published rate is 128 lanes per clock,
-    as the yardstick). Each block reads the SM clock count (clock64) and
-    the global nanosecond timer at its start and end; the rate is the
-    grid's lanes over its whole span, in the SM clocks the blocks
-    counted. Checks in the SASS that each chain is its one
-    instruction."""
+    interleaved, FFMA, whose published rate is 128 lanes per clock, as
+    the yardstick, and the two 16-bit SADs of the Main10 search: the
+    packed vabsdiff2 and the scalar half-word vabsdiff). Each block
+    reads the SM clock count (clock64) and the global nanosecond timer
+    at its start and end; the rate is the grid's lanes over its whole
+    span, in the SM clocks the blocks counted. Checks in the SASS that
+    each chain is its one instruction, where it has one. Returns the
+    lanes per clock per SM of each."""
     import ctypes
     from x265_tpu_torch import kernels
     iters, chains, threads = 4096, 8, 256
@@ -866,9 +1007,10 @@ def phase_int_rates() -> None:
     sass = {f: Counter(o)
             for f, o in kernels.sass_opcodes("probes/int_rates").items()}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rates = {}
     for op, name in enumerate(RATE_OPS):
         chain = next(c for f, c in sass.items() if f"chains<{op}>" in f)
-        want = {k: chain[k] for k in RATE_SASS[name]}
+        want = {k: chain[k] for k in RATE_SASS[name] or ()}
         if any(v < chains // len(want) for v in want.values()):
             raise AssertionError(f"int_rates {name}: SASS {want}")
         per_sm = lib.int_rates_blocks_per_sm(op)
@@ -886,11 +1028,14 @@ def phase_int_rates() -> None:
                           (ns[:, 1] - ns[:, 0]).double()).mean()) * 1e9
         span_s = float(ns[:, 1].max() - ns[:, 0].min()) * 1e-9
         lanes = per_sm * threads * iters * chains / (span_s * clock_hz)
+        rates[name] = lanes
         print(json.dumps({"int_rate": name, "blocks_per_sm": per_sm,
                           "lanes_per_clock_per_sm": lanes,
                           "warp_instructions_per_clock_per_sm": lanes / 32,
                           "sm_clock_hz": clock_hz, "span_s": span_s,
-                          "sass": want}), flush=True)
+                          "sass": want or dict(chain.most_common(6))}),
+              flush=True)
+    return rates
 
 
 def full_size_clip(n, size=(1080, 1920)):
@@ -937,7 +1082,7 @@ def phase_card_equals_cpu():
          full_size_clip(2, CARD_CPU_SIZE), bench_config, CHUNK),
         ("fast/zerolatency 64x96 strobe 1I+6P chunk 2", strobe_clip(7),
          fast_config, 2),
-        ("fast/zerolatency 1080x1920 1I+2P", full_size_clip(3),
+        ("fast/zerolatency 1080x1920 1I+1P", full_size_clip(2),
          fast_config, CHUNK),
         ("medium/zerolatency 72x128 1I+6P chunk 2", medium_clip(7),
          medium_config, 2),
@@ -947,7 +1092,7 @@ def phase_card_equals_cpu():
          placebo_config, 5),
         ("NR 600 + lowpass 64x96 1I+4P chunk 2", small_clip(5),
          nr_lowpass_config, 2),
-        ("slow/zerolatency 1080x1920 1I+2P", full_size_clip(3),
+        ("slow/zerolatency 1080x1920 1I+1P", full_size_clip(2),
          slow_config, CHUNK))
     out = {}
     for tag, frames, make_cfg, chunk in legs:
@@ -1021,38 +1166,30 @@ def phase_b_card_equals_cpu():
 
 
 def phase_b_path(first_frames):
-    """The fast path with B frames at full size: the bench clip, one
-    warm-up pass, then a timed pass with every launch count set to 0
-    just before it and read just after. Returns the launches."""
-    from x265_tpu_torch.ops.me_win import gather_windows, \
-        int_search_pair_windows, int_search_windows
+    """The fast path with B frames at full size: the bench clip, a timed
+    pass with every launch count set to 0 just before it and read just
+    after (its warm-up is the 1080p card-vs-CPU leg of the same
+    configuration, which ran on the card just before). Returns the
+    launches."""
     frames = [synth_1080p(i % 3, shift=2 * i) for i in range(GOP)]
     cfg = fast_b_config(1080, 1920)
-    t0 = time.perf_counter()
-    warm, _ = encode_random_access(frames, "cuda", cfg)
-    warm_s = time.perf_counter() - t0
-    counted = (gather_windows, int_search_pair_windows, int_search_windows)
-    for fn in counted:
-        fn.launches = 0
+    reset_launches()
     split = {}
     t0 = time.perf_counter()
     res, lengths = encode_random_access(frames, "cuda", cfg, timing=split)
     wall = time.perf_counter() - t0
-    launches = {"gather_windows": gather_windows.launches,
-                "int_search": int_search_pair_windows.launches +
-                int_search_windows.launches}
+    launches = read_launches()
     n_p = sum(r.ftype == "P" for r in res)
     n_b = sum(r.ftype == "B" for r in res)
     want = {"gather_windows": 4 * n_p + 8 * n_b,
-            "int_search": 2 * n_p + 4 * n_b}
-    if launches != want or int_search_pair_windows.launches != n_p + 2 * n_b:
+            "int_search": 2 * n_p + 4 * n_b,
+            "int_search_pair": n_p + 2 * n_b}
+    if not _want(launches, want) or any(launches["u16"].values()):
         raise AssertionError(f"fast_b: launches {launches}, want {want} "
                              f"({n_p} anchor P, {n_b} B)")
     if len(res) != GOP or n_b == 0 or any(len(r.bitstream) == 0
                                           for r in res):
         raise AssertionError("fast_b produced missing frames or no B frame")
-    if any(a.bitstream != b.bitstream for a, b in zip(res, warm)):
-        raise AssertionError("fast_b: two passes over one clip differ")
     if [r.bitstream for r in res[:len(first_frames)]] != \
             [r.bitstream for r in first_frames]:
         raise AssertionError("fast_b: the clip's first frames differ from "
@@ -1062,8 +1199,8 @@ def phase_b_path(first_frames):
         "(CLI B loop, b-adapt)", "frames": len(res),
         "bytes": sum(len(r.bitstream) for r in res),
         "i_frame_bytes": len(res[0].bitstream), "minigop_lengths": lengths,
-        "anchor_p": n_p, "b_frames": n_b, "warmup_s": warm_s,
-        "wall_s": wall, "fps": GOP / wall, **split,
+        "anchor_p": n_p, "b_frames": n_b, "wall_s": wall,
+        "fps": GOP / wall, **split,
         "anchor_p_frame_s": split["anchor_p_s"] / n_p,
         "b_frame_s": split["b_frames_s"] / n_b,
         "b_emit_frame_s": split["b_emit_s"] / n_b, "launches": launches,
@@ -1141,8 +1278,8 @@ def phase_dqp_card_equals_cpu():
 
     frame = small_clip(1)
     legs = (
-        ("aq2 + cutree medium/zerolatency 1080x1920 1I+2P encode_sequence",
-         full_size_clip(3), lambda fr, d: encode_seq(
+        ("aq2 + cutree medium/zerolatency 1080x1920 1I+1P encode_sequence",
+         full_size_clip(2), lambda fr, d: encode_seq(
              fr, d, aq_cutree_config(*fr[0][0].shape))),
         ("fast + aq2 64x96 1I+4 B loop", b_clip(5),
          lambda fr, d: (encode_random_access(fr, d, fast_b_aq(64, 96))[0],
@@ -1186,42 +1323,32 @@ def phase_dqp_card_equals_cpu():
 
 def phase_aq_cutree(first_frames):
     """The medium/zerolatency path with AQ 2 + cuTree at full size,
-    through encode_sequence: the bench clip, one warm-up pass, then a
-    timed pass with every launch count set to 0 just before it and read
-    just after. The lookahead sees the whole 25-frame GOP, so its maps
-    differ from the 3-frame card-vs-CPU leg's: the timed pass must
-    repeat the warm-up pass, and its I frame (the host-recon path) and
-    lookahead run as they do there. Then one profile of its P chunk
-    with its maps after its I frame, and the device's busy and idle
-    shares of the timed pass's P-frame wall. Returns the launches."""
-    from x265_tpu_torch.ops.me_win import gather_windows, \
-        int_search_pair_windows, int_search_windows
+    through encode_sequence: the bench clip, a timed pass with every
+    launch count set to 0 just before it and read just after (its
+    warm-up is the 1080p card-vs-CPU leg of the same configuration,
+    which ran on the card just before; the lookahead sees the whole
+    25-frame GOP, so the maps differ from that 2-frame leg's). Then one
+    profile of its P chunk with its maps after its I frame, and the
+    device's busy and idle shares of the timed pass's P-frame wall.
+    Returns the launches."""
     frames = [synth_1080p(i % 3, shift=2 * i) for i in range(GOP)]
     cfg = aq_cutree_config(1080, 1920)
-    t0 = time.perf_counter()
-    warm, _ = encode_seq(frames, "cuda", cfg)
-    warm_s = time.perf_counter() - t0
-    counted = (gather_windows, int_search_pair_windows, int_search_windows)
-    for fn in counted:
-        fn.launches = 0
+    reset_launches()
     split = {}
     t0 = time.perf_counter()
     res, coded = encode_seq(frames, "cuda", cfg, timing=split)
     wall = time.perf_counter() - t0
-    launches = {"gather_windows": gather_windows.launches,
-                "int_search": int_search_pair_windows.launches +
-                int_search_windows.launches}
+    launches = read_launches()
     n_p = sum(r.ftype == "P" for r in res)
     n_i = len(res) - n_p
-    want = {"gather_windows": 4 * n_p, "int_search": 2 * n_p}
-    if launches != want or int_search_pair_windows.launches != n_p:
+    want = {"gather_windows": 4 * n_p, "int_search": 2 * n_p,
+            "int_search_pair": n_p}
+    if not _want(launches, want) or any(launches["u16"].values()):
         raise AssertionError(f"aq_cutree: launches {launches}, want {want}")
     if len(res) != GOP or n_p == 0 or any(len(r.bitstream) == 0
                                           for r in res):
         raise AssertionError("aq_cutree produced missing frames")
-    if any(a.bitstream != b.bitstream for a, b in zip(res, warm)):
-        raise AssertionError("aq_cutree: two passes over one clip differ")
-    if first_frames is None or len(first_frames) != 3:
+    if first_frames is None or len(first_frames) != 2:
         raise AssertionError("aq_cutree: no card-vs-CPU leg ran")
     stats = qp_map_stats(coded)
     if stats["qp_ne_slice_share"] == 0:
@@ -1232,7 +1359,7 @@ def phase_aq_cutree(first_frames):
         "2 + cuTree, 25 frames", "frames": len(res),
         "frame_types": "".join(r.ftype for r in res), "bytes": nbytes,
         "medium_path_bytes": 732471, "i_frame_bytes": len(res[0].bitstream),
-        "warmup_s": warm_s, "wall_s": wall, "fps": GOP / wall, **split,
+        "wall_s": wall, "fps": GOP / wall, **split,
         "i_frame_s_each": split["i_frame_s"] / n_i,
         "lookahead_s_per_gop": split["lookahead_s"],
         "p_frame_s": split["p_frames_s"] / n_p, "launches": launches,
@@ -1248,44 +1375,70 @@ def phase_aq_cutree(first_frames):
     return launches
 
 
+COUNTED = ("gather_windows", "int_search_pair_windows", "int_search_windows")
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch counts (both instances, and the
+    uint16 one alone) to 0."""
+    from x265_tpu_torch.ops import me_win
+    for name in COUNTED:
+        fn = getattr(me_win, name)
+        fn.launches = fn.launches_u16 = 0
+
+
+def read_launches() -> dict:
+    """The wrappers' launch counts: the gather and the two searches
+    together (as the per-frame checks count them), the pair search
+    alone, and each wrapper's uint16 (Main10) instance alone."""
+    from x265_tpu_torch.ops import me_win
+    g, p, s = (getattr(me_win, name) for name in COUNTED)
+    return {"gather_windows": g.launches,
+            "int_search": p.launches + s.launches,
+            "int_search_pair": p.launches,
+            "u16": {"gather_windows": g.launches_u16,
+                    "int_search_pair": p.launches_u16,
+                    "int_search_single": s.launches_u16}}
+
+
+def _want(launches: dict, want: dict) -> bool:
+    """Whether the counts named in want are as wanted."""
+    return all(launches[k] == v for k, v in want.items())
+
+
 def phase_path(path: str, make_cfg, first_frames):
     """One path at full size: the bench clip, 1 I + 24 P in chunks of 8,
-    one warm-up pass, then a timed pass with every launch count set to
-    0 just before it and read just after. first_frames: the card's
-    frames of a card-vs-CPU leg of this configuration on the same clip,
-    which the timed pass must reproduce. Returns the launches, the
-    clip and the timed pass's I frame (its DeviceRef), from which the
-    path's profile predicts."""
-    from x265_tpu_torch.ops.me_win import gather_windows, \
-        int_search_pair_windows, int_search_windows
+    a warm-up pass over its first chunk (1 I + 8 P), then a timed pass
+    with every launch count set to 0 just before it and read just
+    after. first_frames: the card's frames of a card-vs-CPU leg of this
+    configuration on the same clip, which the timed pass must
+    reproduce. Returns the launches, the clip and the timed pass's I
+    frame (its DeviceRef), from which the path's profile predicts."""
     frames = [synth_1080p(i % 3, shift=2 * i) for i in range(GOP)]
     t0 = time.perf_counter()
-    warm = encode_ippp(frames, "cuda", make_cfg(1080, 1920))
+    warm = encode_ippp(frames[:1 + CHUNK], "cuda", make_cfg(1080, 1920))
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    counted = (gather_windows, int_search_pair_windows, int_search_windows)
-    for fn in counted:
-        fn.launches = 0
+    reset_launches()
     split = {}
     t0 = time.perf_counter()
     res = encode_ippp(frames, "cuda", make_cfg(1080, 1920), timing=split)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"gather_windows": gather_windows.launches,
-                "int_search": int_search_pair_windows.launches +
-                int_search_windows.launches}
+    launches = read_launches()
     for name, per_frame in (("gather_windows", 4), ("int_search", 2)):
         if launches[name] != per_frame * (GOP - 1):
             raise AssertionError(
                 f"{path}: {name} launched {launches[name]} times in the "
                 f"timed pass, want {per_frame * (GOP - 1)}")
-    if int_search_pair_windows.launches != GOP - 1:
+    if launches["int_search_pair"] != GOP - 1 or any(
+            launches["u16"].values()):
         raise AssertionError(f"{path}: the pair search did not run once "
-                             f"per P frame")
+                             f"per P frame, or a uint16 instance ran")
     if len(res) != GOP or any(len(r.bitstream) == 0 for r in res):
         raise AssertionError(f"{path} produced missing frames")
     if any(a.bitstream != b.bitstream for a, b in zip(res, warm)):
-        raise AssertionError(f"{path}: two passes over one clip differ")
+        raise AssertionError(f"{path}: two passes over one chunk differ")
     if [r.bitstream for r in res[:len(first_frames)]] != \
             [r.bitstream for r in first_frames]:
         raise AssertionError(f"{path}: the clip's first frames differ from "
@@ -1422,6 +1575,15 @@ CLI_RATE = ["--bitrate", "3000", "--vbv-maxrate", "3000", "--vbv-bufsize",
             "6000", "--hash", "1"]
 CLI_1080P = ["--preset", "medium", "--tune", "zerolatency", *CLI_RATE]
 ZL_FAST = ["--preset", "ultrafast", "--tune", "zerolatency"]
+MASTER_DISPLAY = ("G(13250,34500)B(7500,3000)R(34000,16000)"
+                  "WP(15635,16450)L(10000000,1)")
+HDR10 = ["--colorprim", "bt2020", "--transfer", "smpte2084",
+         "--colormatrix", "bt2020nc", "--master-display", MASTER_DISPLAY,
+         "--max-cll", "1000,400"]
+# the Main10 CLI cell: CLI_1080P at 10 bits with SAO off (ROADMAP item
+# 31), with the HDR10 signalling live HDR encoders send
+CLI_MAIN10 = ["--preset", "medium", "--tune", "zerolatency", "--no-sao",
+              *CLI_RATE, *HDR10]
 # the 64x96 card == CPU legs: (tag, clip, passes); each pass is the
 # flags of one cli.main call ({d}: the leg's directory)
 CLI_LEGS = (
@@ -1446,10 +1608,10 @@ CLI_LEGS = (
      None))
 
 
-def write_y4m(path, frames) -> str:
+def write_y4m(path, frames, bit_depth=8) -> str:
     from x265_tpu_torch.io import Y4MWriter
     h, w = frames[0][0].shape
-    wr = Y4MWriter(str(path), w, h)
+    wr = Y4MWriter(str(path), w, h, bit_depth=bit_depth)
     for f in frames:
         wr.write_frame(*f)
     wr.close()
@@ -1559,9 +1721,10 @@ def phase_cli_card_equals_cpu(workdir):
                           "card_s": t1 - t0, "cpu_s": t2 - t1}), flush=True)
 
 
-def verify_hash_seis(stream: bytes, recon_y4m: str) -> int:
+def verify_hash_seis(stream: bytes, recon_y4m: str, bit_depth=8) -> int:
     """Every picture's MD5 SEI against its recon (IPPP: decode order is
-    display order), with the port's parser and hash. Returns the count."""
+    display order; 16-bit samples above 8 bits), with the port's parser
+    and hash. Returns the count."""
     from x265_tpu_torch.bitstream.nal import split_annexb
     from x265_tpu_torch.bitstream.sei import (parse_picture_hash_sei,
                                               picture_md5)
@@ -1573,87 +1736,89 @@ def verify_hash_seis(stream: bytes, recon_y4m: str) -> int:
         raise AssertionError(f"{len(seis)} hash SEIs for {len(recs)} "
                              f"frames")
     for k, (sei, rec) in enumerate(zip(seis, recs)):
-        if sei is None or sei[0] != 1 or sei[1] != picture_md5(*rec):
+        if sei is None or sei[0] != 1 or \
+                sei[1] != picture_md5(*rec, bit_depth=bit_depth):
             raise AssertionError(f"frame {k}: MD5 SEI does not match the "
                                  f"recon")
     return len(seis)
 
 
-def phase_cli(workdir):
-    """The CLI at 1080p: the 64x96 legs card == CPU; one timed pass of
-    the bench clip (25 frames as y4m) with --preset medium --tune
-    zerolatency under ABR 3000 kb/s + VBV, hash SEIs verified, launch
-    counts set to 0 just before it and read just after; a card == CPU
-    leg of 1 I + 2 P: the CPU's 3-frame encode against the timed pass's
-    first 3 frames (rate control is causal, and the CLI writes each
-    frame as it is coded, so those are the card's 3-frame encode):
-    bytes and QPs; scale_frame 1080p -> 1280x720 card == CPU with its
-    device time. Returns the launches."""
+def cli_pass(src, out, flags, bit_depth, path="cli") -> dict:
+    """One timed 25-frame pass of python -m x265_tpu_torch.cli on the
+    card (launch counts set to 0 just before it and read just after:
+    the gather 4 times per P frame and the searches 2, all of the bit
+    depth's instance), every MD5 SEI verified against the recon, then
+    the CPU's first 2 frames under the same flags against the pass's
+    (bytes and QPs). Prints fps, kb/s against the 3000 target, the QP
+    range per frame type, VBV underflows, seconds per I and P frame and
+    the SPS's profile and bit depths. Returns the record."""
     from x265_tpu_torch.cli import main as cli_main
     from x265_tpu_torch.common.params import EncoderConfig
     from x265_tpu_torch.enc.ratecontrol import RateControl
-    from x265_tpu_torch.ops.me_win import gather_windows, \
-        int_search_pair_windows, int_search_windows
-    from x265_tpu_torch.ops.scaler import scale_frame, scale_plane_t
-    phase_cli_card_equals_cpu(workdir)
-    frames = [synth_1080p(i % 3, shift=2 * i) for i in range(GOP)]
-    src = write_y4m(f"{workdir}/bench.y4m", frames)
-
-    counted = (gather_windows, int_search_pair_windows, int_search_windows)
-    for fn in counted:
-        fn.launches = 0
-    out = f"{workdir}/cli_1080p"
+    reset_launches()
     with EncoderTimer() as timer:
         t0 = time.perf_counter()
         rc = cli_main([src, "-o", out + ".hevc", "--csv", out + ".csv",
-                       "--recon", out + ".y4m", "--no-progress",
-                       *CLI_1080P], device="cuda")
+                       "--recon", out + ".y4m", "--no-progress", *flags],
+                      device="cuda")
         wall = time.perf_counter() - t0
-    launches = {"gather_windows": gather_windows.launches,
-                "int_search": int_search_pair_windows.launches +
-                int_search_windows.launches}
+    launches = read_launches()
     rows = csv_rows(out + ".csv")[1:]
     if rc != 0 or len(rows) != GOP:
-        raise AssertionError(f"the 1080p CLI pass coded {len(rows)} frames")
+        raise AssertionError(f"the 1080p {path} pass coded {len(rows)} "
+                             f"frames")
     stream = open(out + ".hevc", "rb").read()
-    n_hash = verify_hash_seis(stream, out + ".y4m")
+    n_hash = verify_hash_seis(stream, out + ".y4m", bit_depth)
     types = [r[1] for r in rows]
     n_p = types.count("P")
-    want = {"gather_windows": 4 * n_p, "int_search": 2 * n_p}
-    if launches != want or int_search_pair_windows.launches != n_p:
-        raise AssertionError(f"cli: launches {launches}, want {want}")
-    # card == CPU: the CPU's first 3 frames under the same flags
+    u16 = bit_depth > 8
+    want = {"gather_windows": 4 * n_p, "int_search": 2 * n_p,
+            "int_search_pair": n_p}
+    want_u16 = {"gather_windows": 4 * n_p if u16 else 0,
+                "int_search_pair": n_p if u16 else 0,
+                "int_search_single": n_p if u16 else 0}
+    if not _want(launches, want) or launches["u16"] != want_u16:
+        raise AssertionError(f"{path}: launches {launches}, want {want} "
+                             f"with uint16 {want_u16}")
+    sps = sps_fields(stream)
+    if sps != {"profile_idc": 2 if u16 else 1, "bit_depth_luma": bit_depth,
+               "bit_depth_chroma": bit_depth}:
+        raise AssertionError(f"{path}: SPS {sps}")
+    # card == CPU: the CPU's first 2 frames under the same flags
     t0 = time.perf_counter()
-    leg = f"{workdir}/leg_cpu"
-    if cli_main([src, "-o", leg + ".hevc", "--csv", leg + ".csv", "-f", "3",
-                 "--no-progress", *CLI_1080P], device="cpu") != 0:
-        raise AssertionError("1080p CLI leg failed on the CPU")
+    leg = out + "_leg_cpu"
+    if cli_main([src, "-o", leg + ".hevc", "--csv", leg + ".csv", "-f", "2",
+                 "--no-progress", *flags], device="cpu") != 0:
+        raise AssertionError(f"1080p {path} leg failed on the CPU")
     cpu_s = time.perf_counter() - t0
     cpu_stream, cpu_rows = open(leg + ".hevc", "rb").read(), \
         csv_rows(leg + ".csv")[1:]
-    if stream[:len(cpu_stream)] != cpu_stream or cpu_rows != rows[:3] or \
+    if stream[:len(cpu_stream)] != cpu_stream or cpu_rows != rows[:2] or \
             stream[len(cpu_stream):len(cpu_stream) + 4] != b"\0\0\0\1":
-        raise AssertionError("1080p CLI leg: card != CPU (bytes or QPs)")
-    print(json.dumps({"cli_card_equals_cpu": "1080p medium/zerolatency ABR "
-                      "3000 + VBV, hash, 1 I + 2 P", "bytes": len(cpu_stream),
+        raise AssertionError(f"1080p {path} leg: card != CPU (bytes or "
+                             f"QPs)")
+    print(json.dumps({"cli_card_equals_cpu": f"1080p {path} "
+                      + " ".join(flags) + ", 1 I + 1 P",
+                      "bytes": len(cpu_stream),
                       "qps": [r[2] for r in cpu_rows], "cpu_s": cpu_s}),
           flush=True)
     # the VBV buffer through the coded frames, as the CLI's controller
     # saw it (the CLI's settings after its level check)
     cfg = EncoderConfig(width=1920, height=1080, bitrate=3000,
-                        rc_mode="abr", vbv_bufsize=6000, vbv_maxrate=3000)
+                        rc_mode="abr", vbv_bufsize=6000, vbv_maxrate=3000,
+                        bit_depth=bit_depth)
     cfg.enforce_level()
     vbv = RateControl(cfg)
     for r in rows:
         vbv.frame_done(int(r[3]), int(r[2]), 1.0, r[1] == "I")
     qps = {t: [int(r[2]) for r in rows if r[1] == t] for t in ("I", "P")}
     kbps = len(stream) * 8 * 25 / GOP / 1000
-    print(json.dumps({
-        "path": "cli", "clip": "1080p y4m, 25 frames, python -m "
-        "x265_tpu_torch.cli " + " ".join(CLI_1080P), "frames": len(rows),
-        "frame_types": "".join(types), "bytes": len(stream),
-        "wall_s": wall, "fps": GOP / wall, "kbps": kbps,
-        "kbps_target": 3000, "kbps_over_target": kbps / 3000,
+    rec = {
+        "path": path, "clip": f"1080p {bit_depth}-bit y4m, 25 frames, "
+        "python -m x265_tpu_torch.cli " + " ".join(flags),
+        "frames": len(rows), "frame_types": "".join(types),
+        "bytes": len(stream), "wall_s": wall, "fps": GOP / wall,
+        "kbps": kbps, "kbps_target": 3000, "kbps_over_target": kbps / 3000,
         "qp_range": {t: [min(q), max(q)] for t, q in qps.items() if q},
         "qps": [int(r[2]) for r in rows],
         "vbv_underflows": vbv.vbv_underflows,
@@ -1661,10 +1826,29 @@ def phase_cli(workdir):
         "p_frame_s": sum(timer.secs["P"]) / max(n_p, 1),
         "host_rest_s_per_frame": (wall - sum(timer.secs["I"]) -
                                   sum(timer.secs["P"])) / GOP,
-        "md5_seis_verified": n_hash, "launches": launches,
-        "psnr_y_mean": float(np.mean([float(r[4]) for r in rows]))}),
-        flush=True)
+        "md5_seis_verified": n_hash, "sps": sps, "launches": launches,
+        "psnr_y_mean": float(np.mean([float(r[4]) for r in rows]))}
+    rec["kbps_within_5pct"] = abs(kbps / 3000 - 1) <= 0.05
+    print(json.dumps(rec), flush=True)
+    return rec
 
+
+def phase_cli(workdir):
+    """The CLI at 1080p: the 64x96 legs card == CPU; one timed pass of
+    the bench clip (25 frames as y4m) with --preset medium --tune
+    zerolatency under ABR 3000 kb/s + VBV, hash SEIs verified, launch
+    counts set to 0 just before it and read just after; a card == CPU
+    leg of 1 I + 1 P: the CPU's 2-frame encode against the timed pass's
+    first 2 frames (rate control is causal, and the CLI writes each
+    frame as it is coded, so those are the card's 2-frame encode):
+    bytes and QPs; scale_frame 1080p -> 1280x720 card == CPU with its
+    device time. Returns the launches."""
+    from x265_tpu_torch.ops.scaler import scale_frame, scale_plane_t
+    phase_cli_card_equals_cpu(workdir)
+    frames = [synth_1080p(i % 3, shift=2 * i) for i in range(GOP)]
+    src = write_y4m(f"{workdir}/bench.y4m", frames)
+    run = cli_pass(src, f"{workdir}/cli_1080p", CLI_1080P, 8)
+    launches = run["launches"]
     # the scaler: 1080p -> 1280x720 on the card against the CPU
     card = scale_frame(frames[0], 1280, 720, device="cuda")
     cpu = scale_frame(frames[0], 1280, 720, device="cpu")
@@ -1692,6 +1876,122 @@ def phase_cli(workdir):
                       "planes, their tap-index uploads included"}),
           flush=True)
     return launches
+
+
+# --- Main10: 10-bit planes end to end -------------------------------------
+
+def main10_config(h, w, preset=None, tune=None, **kw):
+    """A 10-bit configuration at QP 32 with a preset (and tune), SAO off
+    (ROADMAP item 31: the reference codes 10-bit SAO offsets with the
+    8-bit cMax), then the keyword overrides."""
+    from x265_tpu_torch.common.params import EncoderConfig
+    cfg = EncoderConfig(width=w, height=h, qp=QP, bit_depth=10)
+    if preset:
+        cfg.apply_preset(preset)
+    if tune:
+        cfg.apply_tune(tune)
+    cfg.sao = False
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def fade10(n, h=64, w=96):
+    """synth10_clip's first frame panning and fading (weightp finds
+    weights): frame i at (10 - i) / 10 of its brightness."""
+    y, cb, cr = synth10_clip(1, h, w)[0]
+    return [(y, cb, cr)] + [
+        ((np.roll(y, 2 * i, axis=1).astype(np.int32) * (10 - i) // 10)
+         .astype(np.uint16), cb, cr) for i in range(1, n)]
+
+
+def phase_main10_card_equals_cpu(workdir):
+    """The Main10 legs (tests/test_torch_main10.py's configurations on
+    64x96 and 72x128 clips), card against CPU, byte-identical: the I
+    frame at CTU 32; an IPPP weightp sequence with the MD5 SEI;
+    --preset slow --tune zerolatency --no-sao (CTU 64, 4 references,
+    RDOQ) 1 I + 3 P in one chunk, whose I frame is the CTU-64
+    wavefront; a --preset fast --no-sao hierarchical-B mini-GOP;
+    encode_sequence with aq-mode 2 + cuTree (the host-recon I frame);
+    and the CLI on a 420p10 y4m with the HDR10 flags and --hash 1
+    (bytes and csv rows)."""
+    from x265_tpu_torch.enc import IntraEncoder
+
+    def enc(cfg, device):
+        return IntraEncoder(cfg, device=device)
+
+    legs = (
+        ("I frame CTU 32 64x96", synth10_clip(1, 64, 96),
+         lambda fr, d: [enc(main10_config(64, 96), d).encode_frame(*fr[0])]),
+        ("weightp IPPP encode_sequence hash 64x96 1I+3P", fade10(4),
+         lambda fr, d: enc(main10_config(64, 96, hash_sei=1),
+                           d).encode_sequence(fr)),
+        ("slow/zerolatency no-sao 72x128 1I+3P chunk 3",
+         synth10_clip(4, 72, 128),
+         lambda fr, d: encode_ippp(fr, d, main10_config(
+             72, 128, "slow", "zerolatency"), chunk=3)),
+        ("fast no-sao 64x96 encode_hier_gop 1I+4", synth10_clip(5, 64, 96),
+         lambda fr, d: enc(main10_config(64, 96, "fast"),
+                           d).encode_hier_gop(fr)),
+        ("aq2 + cutree encode_sequence 64x96 1I+2P",
+         synth10_clip(3, 64, 96, seed=5),
+         lambda fr, d: enc(main10_config(64, 96, aq_mode=2, cutree=True,
+                                         deblock=True),
+                           d).encode_sequence(fr)))
+    for tag, frames, run in legs:
+        t0 = time.perf_counter()
+        gpu = run(frames, "cuda")
+        t1 = time.perf_counter()
+        cpu = run(frames, "cpu")
+        t2 = time.perf_counter()
+        if len(gpu) != len(cpu) or any(
+                a.bitstream != b.bitstream for a, b in zip(gpu, cpu)):
+            raise AssertionError(f"Main10 card != CPU at {tag}")
+        print(json.dumps({"main10_card_equals_cpu": tag,
+                          "frame_types": "".join(r.ftype for r in gpu),
+                          "bytes": sum(len(r.bitstream) for r in gpu),
+                          "card_s": t1 - t0, "cpu_s": t2 - t1}), flush=True)
+        if "B" in tag and not any(r.ftype == "B" for r in gpu):
+            raise AssertionError(f"{tag}: no B frame")
+    from x265_tpu_torch.cli import main as cli_main
+    src = write_y4m(f"{workdir}/m10.y4m", fade10(3), bit_depth=10)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        out = f"{workdir}/m10_{device}"
+        if cli_main([src, "-o", out + ".hevc", "--csv", out + ".csv",
+                     "--recon", out + ".y4m", "--no-progress", *ZL_FAST,
+                     "--qp", "30", "--hash", "1", *HDR10],
+                    device=device) != 0:
+            raise AssertionError(f"Main10 CLI leg failed on {device}")
+        outs[device] = (open(out + ".hevc", "rb").read(),
+                        csv_rows(out + ".csv"), open(out + ".y4m",
+                                                     "rb").read())
+    if outs["cuda"] != outs["cpu"]:
+        raise AssertionError("Main10 CLI leg: card != CPU")
+    n_hash = verify_hash_seis(outs["cuda"][0], f"{workdir}/m10_cuda.y4m", 10)
+    print(json.dumps({"main10_card_equals_cpu": "CLI 420p10 y4m 64x96 "
+                      "ultrafast/zerolatency --qp 30 --hash 1 HDR10, 3 "
+                      "frames", "bytes": len(outs["cuda"][0]),
+                      "md5_seis_verified": n_hash,
+                      "sps": sps_fields(outs["cuda"][0])}), flush=True)
+
+
+def phase_main10(workdir):
+    """Main10 at 1080p through the CLI: the card == CPU legs, then the
+    bench clip lifted to 10 bits (synth10_1080p) as a 25-frame 420p10
+    y4m through one timed pass of CLI_MAIN10 (cli_pass: the uint16
+    gather 4 times and the uint16 searches 2 times per P frame, no
+    uint8 instance; every MD5 SEI against the 10-bit recon; the SPS's
+    Main10 profile and bit depth; kb/s within 5% of 3000 and no VBV
+    underflow; the CPU's 1 I + 1 P against the pass's). Returns the
+    launches."""
+    phase_main10_card_equals_cpu(workdir)
+    frames = [synth10_1080p(i) for i in range(GOP)]
+    src = write_y4m(f"{workdir}/bench10.y4m", frames, bit_depth=10)
+    del frames
+    run = cli_pass(src, f"{workdir}/cli_main10", CLI_MAIN10, 10,
+                   path="cli_main10")
+    return run["launches"]
 
 
 def main() -> int:
@@ -1722,7 +2022,7 @@ def main() -> int:
     print_build_report(kernels)
     done("build")
 
-    phase_int_rates()
+    rates = phase_int_rates()
     gather = {"bench": phase_gather(SHAPES),
               "fast": phase_gather(FAST_SHAPES, (torch.uint8,)),
               "medium": phase_gather(MEDIUM_SHAPES, (torch.uint8,)),
@@ -1731,6 +2031,12 @@ def main() -> int:
               "placebo": phase_gather(PLACEBO_SHAPES, (torch.uint8,),
                                       timing=False)}
     search = phase_search()
+    # the Main10 path (the CLI cell at 10 bits, medium/zerolatency):
+    # the uint16 gather at its shapes, the uint16 searches
+    gather["cli_main10"] = phase_gather(MEDIUM_SHAPES, (torch.uint16,),
+                                        agg_dtype=torch.uint16)
+    search.update(phase_search(10, rates["vabsdiff_h"]))
+    search["cli_main10"] = search.pop("main10")
     log("kernel == plain at every main-path shape")
     done("kernels")
     legs = phase_card_equals_cpu()
@@ -1741,10 +2047,10 @@ def main() -> int:
             ("bench", bench_config,
              legs[f"{CARD_CPU_SIZE[0]}x{CARD_CPU_SIZE[1]} 1I+1P"]
              if CARD_CPU_SIZE == (1080, 1920) else []),
-            ("fast", fast_config, legs["fast/zerolatency 1080x1920 1I+2P"]),
+            ("fast", fast_config, legs["fast/zerolatency 1080x1920 1I+1P"]),
             ("medium", medium_config,
              legs["medium/zerolatency 1080x1920 1I+1P"]),
-            ("slow", slow_config, legs["slow/zerolatency 1080x1920 1I+2P"])):
+            ("slow", slow_config, legs["slow/zerolatency 1080x1920 1I+1P"])):
         launches[path], frames, i_ref = phase_path(path, make_cfg, first)
         log(f"{path} path ran, launches {launches[path]}")
         done(f"{path}_path")
@@ -1770,6 +2076,10 @@ def main() -> int:
         launches["cli"] = phase_cli(workdir)
     log(f"cli ran, launches {launches['cli']}")
     done("cli")
+    with tempfile.TemporaryDirectory() as workdir:
+        launches["cli_main10"] = phase_main10(workdir)
+    log(f"cli_main10 ran, launches {launches['cli_main10']}")
+    done("main10")
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": time.perf_counter() - t0}), flush=True)
 
@@ -1789,34 +2099,57 @@ def main() -> int:
                                  ("ms", "plain_ms", "bound_ms", "bound_by")},
                               "launches": launches[path]["int_search"]}}
         for path in launches}}), flush=True)
-    # launches: summed over the seven paths' timed passes; the times and
-    # the bound: per P frame at the bench path's shapes (ms_of)
-    total = {k: sum(n[k] for n in launches.values())
-             for k in ("gather_windows", "int_search")}
-    by_path = {k: {path: launches[path][k] for path in launches}
-               for k in total}
-    print(json.dumps({"kernels": [{
-        "name": "gather_windows", "route": "cuda",
-        "source": "x265_tpu_torch/csrc/gather_windows.cu",
-        "replaces": "x265_tpu/ops/me_win.py:80",
-        "launches": total["gather_windows"],
-        "launches_by_path": by_path["gather_windows"],
-        "ms_of": "bench path, per P frame",
-        "max_abs_err": max(g["max_abs_err"] for g in gather.values()),
-        "ms": gather["bench"]["ms"], "plain_ms": gather["bench"]["plain_ms"],
-        "bound_ms": gather["bench"]["bound_ms"], "bound_by": "bytes",
-        "library_ms": gather["bench"]["library_ms"]}, {
-        "name": "int_search", "route": "cuda",
-        "source": "x265_tpu_torch/csrc/int_search.cu",
-        "replaces": "x265_tpu/ops/me_win.py:308,350",
-        "launches": total["int_search"],
-        "launches_by_path": by_path["int_search"],
-        "ms_of": "bench path, per P frame",
-        "max_abs_err": max(a["max_abs_err"] for a in search.values()),
-        "ms": search["bench"]["ms"], "plain_ms": search["bench"]["plain_ms"],
-        "bound_ms": search["bench"]["bound_ms"],
-        "bound_by": search["bench"]["bound_by"],
-        "library_ms": None}]}), flush=True)
+    # each kernel instance: its launches summed over the timed passes of
+    # the paths that run it (uint8: the seven 8-bit paths; uint16: the
+    # Main10 CLI pass), by path; its times and bound per P frame at
+    # the shapes of one path (ms_of: the bench path for uint8, the
+    # Main10 path for uint16)
+    u8_paths = [p for p in launches if p != "cli_main10"]
+
+    def counts(path):
+        n, u16 = launches[path], launches[path]["u16"]
+        pair = n["int_search_pair"]
+        return {"gather_windows_u8": n["gather_windows"] -
+                u16["gather_windows"],
+                "gather_windows_u16": u16["gather_windows"],
+                "int_search_pair_u8": pair - u16["int_search_pair"],
+                "int_search_u8": n["int_search"] - pair -
+                u16["int_search_single"],
+                "int_search_pair_u16": u16["int_search_pair"],
+                "int_search_u16": u16["int_search_single"]}
+
+    by_path = {path: counts(path) for path in launches}
+    entries = []
+    for name, src, replaces, path, nums, bound_by, lib, err in (
+            ("gather_windows_u8", "gather_windows", ":80", "bench",
+             gather["bench"], "bytes", gather["bench"]["library_ms"],
+             max(g["max_abs_err"] for g in gather.values())),
+            ("gather_windows_u16", "gather_windows", ":80", "cli_main10",
+             gather["cli_main10"], "bytes",
+             gather["cli_main10"]["library_ms"],
+             gather["cli_main10"]["max_abs_err"]),
+            *((f"{inst}_{dt}", "int_search", ":308,350",
+               "bench" if dt == "u8" else "cli_main10",
+               search["bench" if dt == "u8" else "cli_main10"]["by"][shape],
+               None, None,
+               search["bench" if dt == "u8" else "cli_main10"]["by"][
+                   f"{shape}_max_abs_err"])
+              for dt in ("u8", "u16")
+              for inst, shape in (("int_search_pair",
+                                   "pair_16region_8block"),
+                                  ("int_search", "single_32block")))):
+        paths = u8_paths if name.endswith("u8") else ["cli_main10"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"x265_tpu_torch/csrc/{src}.cu",
+            "replaces": f"x265_tpu/ops/me_win.py{replaces}",
+            "launches": sum(by_path[p][name] for p in paths),
+            "launches_by_path": {p: by_path[p][name] for p in paths},
+            "ms_of": f"{path} path, per P frame", "max_abs_err": err,
+            "ms": nums["ms"], "plain_ms": nums["plain_ms"],
+            "bound_ms": nums["bound_ms"],
+            "bound_by": bound_by or nums["bound_by"], "library_ms": lib})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

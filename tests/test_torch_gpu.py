@@ -100,30 +100,38 @@ def test_gather_kernel_odd_windows_and_unaligned_plane_on_gpu(dtype):
                            else want), win
 
 
-def _search_inputs(case, h, w, n, side, seed):
+def _search_inputs(case, h, w, n, side, seed, bits=8):
     """Windows for the n-blocks of an h x w plane (n = 16: the 16-region
-    windows of the pair search), the int32 current plane and penalties.
-    Cases: random samples; near-flat samples in {0, 1} with penalties in
+    windows of the pair search), the int32 current plane and penalties,
+    at `bits` bits a sample (windows uint8, or uint16 at 10). Cases:
+    random samples; near-flat samples in {0, 1} with penalties in
     {0, 1, 2} (ties at many indices); flat (every candidate ties); and
-    the extremes, current 255 against window 0 and current 0 against
-    window 255, with the largest SADs."""
+    the extremes, current 255 (curmax: 2^bits - 1) against window 0 and
+    current 0 against window 255 (cur0 at 10 bits: 1023), with the
+    largest SADs."""
     rng = np.random.default_rng(seed)
     s = n + side - 1 + 8
     nb = (h // n) * (w // n)
+    top = (1 << bits) - 1
     if case == "random":
-        win = rng.integers(0, 256, (nb, s, s))
-        cur = rng.integers(0, 256, (h, w))
+        win = rng.integers(0, top + 1, (nb, s, s))
+        cur = rng.integers(0, top + 1, (h, w))
         pen = rng.integers(0, 400, (side, nb))
     elif case == "near_flat":
         win = rng.integers(0, 2, (nb, s, s))
         cur = rng.integers(0, 2, (h, w))
         pen = rng.integers(0, 3, (side, nb))
     else:
-        wv, cv = {"flat": (3, 200), "cur255": (0, 255),
-                  "cur0": (255, 0)}[case]
+        wv, cv = {"flat": (3, 200), "cur255": (0, 255), "curmax": (0, top),
+                  "cur0": (top, 0)}[case]
         win = np.full((nb, s, s), wv)
         cur = np.full((h, w), cv)
         pen = np.full((side, nb), 5)
+    if bits > 8:
+        return (torch.from_numpy(win.astype(np.int16)).cuda()
+                .view(torch.uint16),
+                torch.from_numpy(cur.astype(np.int32)).cuda(),
+                torch.from_numpy(pen.astype(np.int32)).cuda())
     return (torch.from_numpy(win.astype(np.uint8)).cuda(),
             torch.from_numpy(cur.astype(np.int32)).cuda(),
             torch.from_numpy(pen.astype(np.int32)).cuda())
@@ -191,19 +199,71 @@ def test_int_search_kernels_match_plain_on_gpu(case, me_range, plane):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ("random", "near_flat", "flat", "curmax",
+                                  "cur0"))
+@pytest.mark.parametrize("me_range", (10, 7, 2, 5, 12))
+@pytest.mark.parametrize("plane", ("small", "strided"))
+def test_int_search_u16_kernels_match_plain_on_gpu(case, me_range, plane):
+    """The Main10 instances (uint16 windows, 10-bit current) of both
+    entry points against their plain versions, exactly, at every side
+    the presets use, on both planes: int_search_pair_u16 and
+    int_search_u16. Each launch moves the wrapper's count and its
+    uint16 count by one; ties pick the lowest index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    (h, w), (h32, w32) = SEARCH_PLANES[plane]
+    side = 2 * me_range + 1
+    w16, cur, pen = _search_inputs(case, h, w, 16, side, seed=15, bits=10)
+    by16, bx16 = h // 16, w // 16
+    penx8, peny8 = _pens(pen, 4 * by16 * bx16, 16)
+    penx16, peny16 = _pens(pen, by16 * bx16, 17)
+    args = (w16, cur, penx8, peny8, penx16, peny16, by16, bx16, side)
+    fn = port.int_search_pair_windows
+    before = (fn.launches, fn.launches_u16)
+    got = fn(*args)
+    assert (fn.launches, fn.launches_u16) == (before[0] + 1, before[1] + 1)
+    want = port.int_search_pair_windows_plain(*args)
+    torch.cuda.synchronize()
+    for g, wt in zip((*got[0], *got[1]), (*want[0], *want[1])):
+        assert torch.equal(g, wt)
+    if case != "random" and case != "near_flat":
+        assert int(got[0][1].abs().max()) == 0
+        assert int(got[1][1].abs().max()) == 0
+    win, cur, pen = _search_inputs(case, h32, w32, 32, side, seed=42,
+                                   bits=10)
+    penx, peny = _pens(pen, pen.shape[1], 43)
+    fn = port.int_search_windows
+    before = (fn.launches, fn.launches_u16)
+    got = fn(win, cur, penx, peny, 32, side)
+    assert (fn.launches, fn.launches_u16) == (before[0] + 1, before[1] + 1)
+    want = port.int_search_windows_plain(win, cur, penx, peny, 32, side)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case in ("flat", "curmax", "cur0"):
+        assert int(got[1].abs().max()) == 0
+
+
+@pytest.mark.gpu
 def test_int_search_unaligned_windows_on_gpu():
     """Windows the kernel cannot copy 4 bytes at a time: an odd side
     (45 and 61, one unused row and column past the searched ones) and
-    windows that start one byte past an aligned address. Both entry
-    points against their plain versions."""
+    windows that start one element past an aligned address. Both entry
+    points, at 8 and at 10 bits, against their plain versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    for bits in (8, 10):
+        _check_unaligned_search(bits)
+
+
+def _check_unaligned_search(bits):
     h, w, side = 128, 192, 21
-    w16, cur, pen = _search_inputs("random", h, w, 16, side, seed=8)
+    w16, cur, pen = _search_inputs("random", h, w, 16, side, seed=8,
+                                   bits=bits)
     by16, bx16 = h // 16, w // 16
     penx8, peny8 = _pens(pen, 4 * by16 * bx16, 9)
     penx16, peny16 = _pens(pen, by16 * bx16, 10)
-    win32, cur32, pen32 = _search_inputs("random", h, w, 32, side, seed=11)
+    win32, cur32, pen32 = _search_inputs("random", h, w, 32, side, seed=11,
+                                         bits=bits)
     penx, peny = _pens(pen32, pen32.shape[1], 12)
     for shift in (0, 1):
         for odd in (True, False):
@@ -213,7 +273,7 @@ def test_int_search_unaligned_windows_on_gpu():
             for t in (w16, win32):
                 s = t.shape[1] + odd
                 big = torch.zeros(t.shape[0] * s * s + shift,
-                                  dtype=torch.uint8, device="cuda")
+                                  dtype=t.dtype, device="cuda")
                 v = big[shift:].view(t.shape[0], s, s)
                 v[:, :t.shape[1], :t.shape[1]] = t
                 ws.append(v)

@@ -294,10 +294,20 @@ def test_int_search_wrappers_reject_bad_inputs():
 
     pair()
     single()
-    with pytest.raises(ValueError, match="item 19"):       # 10-bit
-        pair(w16=w16.to(torch.int32).to(torch.uint16))
-    with pytest.raises(ValueError, match="item 19"):
-        single(w=w32.to(torch.int32).to(torch.uint16))
+    # uint16 windows (10-bit) search, and equal the plain versions
+    rng = np.random.default_rng(19)
+    w16u, w32u = (torch.from_numpy(rng.integers(0, 1024, shp)
+                                   .astype(np.int16)).view(torch.uint16)
+                  for shp in ((24, 44, 44), (6, 60, 60)))
+    cur10 = torch.from_numpy(rng.integers(0, 1024, (h, w)).astype(np.int32))
+    got = pair(w16=w16u, cur_plane=cur10)
+    want = port.int_search_pair_windows_plain(w16u, cur10, p8, p8, p16, p16,
+                                              4, 6, side)
+    for g, wt in zip((*got[0], *got[1]), (*want[0], *want[1])):
+        assert torch.equal(g, wt)
+    got = single(w=w32u, cur_plane=cur10)
+    want = port.int_search_windows_plain(w32u, cur10, p32, p32, 32, side)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError, match="one device"):
         pair(cur_plane=plane.to("meta"))
     with pytest.raises(ValueError, match="one device"):
@@ -308,6 +318,7 @@ def test_int_search_wrappers_reject_bad_inputs():
         lambda: pair(penx8=p16),                     # 8-block penalties
         lambda: pair(w16=w16[:, :36, :36]),          # window too small
         lambda: pair(cur_plane=plane.long()),
+        lambda: pair(w16=w16.to(torch.int16)),       # not a sample type
         lambda: single(w=w32[:5]),
         lambda: single(n=24, cur_plane=torch.zeros((48, 96), dtype=torch.int32)),
         lambda: single(n=16),                        # 32-blocks only

@@ -10,10 +10,12 @@ Usage:
 Counterpart of x265_tpu/cli.py, flag for flag, writing the same bytes:
 rate control (CQP, CRF, ABR, VBV, two-pass), the SEIs and HDR10
 metadata, the picture hash, WPP, analysis reuse, qpfile and zones. It
-encodes on the GPU; main(argv, device="cpu") runs it on the CPU. Options
-the package does not port (10-bit input, B frames at CTU 64, which the
-default --preset medium sets) raise NotImplementedError naming their
-ROADMAP item before any output file is opened.
+encodes on the GPU; main(argv, device="cpu") runs it on the CPU. A 10-bit
+y4m (420p10), or raw input with --input-depth 10, encodes Main10.
+Options the package does not port (B frames at CTU 64, which the default
+--preset medium sets; SAO at 10 bits, which every preset from veryfast
+up sets: add --no-sao) raise NotImplementedError naming their ROADMAP
+item before any output file is opened.
 
 Reference surface: x265 source/x265cli.cpp (option names follow it
 where the underlying tool exists).

@@ -11,7 +11,7 @@ import torch
 
 from .common.params import EncoderConfig
 from .device import resolve_device
-from .enc.intra_recon import DeviceRef
+from .enc.intra_recon import DeviceRef, np_pixel_dtype
 
 
 def config_from_dict(d: dict) -> EncoderConfig:
@@ -27,15 +27,15 @@ def config_from_dict(d: dict) -> EncoderConfig:
 
 def device_ref_from_numpy(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
                           device=None, bit_depth: int = 8) -> DeviceRef:
-    """DeviceRef (narrow uint planes at the coded size) from numpy recon
-    planes."""
-    if bit_depth != 8:
-        raise NotImplementedError(
-            "10-bit: ROADMAP queue 1 item 19")
+    """DeviceRef (narrow planes at the coded size: uint8 at 8 bits,
+    uint16 at 10) from numpy recon planes."""
+    if bit_depth not in (8, 10):
+        raise ValueError(f"bit_depth must be 8 or 10, got {bit_depth}")
     dev = resolve_device(device)
+    dt = np_pixel_dtype(bit_depth)
 
     def up(p):
         return torch.from_numpy(
-            np.ascontiguousarray(np.asarray(p).astype(np.uint8))).to(dev)
+            np.ascontiguousarray(np.asarray(p).astype(dt))).to(dev)
 
     return DeviceRef(up(y), up(cb), up(cr))

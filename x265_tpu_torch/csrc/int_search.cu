@@ -17,8 +17,8 @@
 // and the result is the lexicographic minimum of (cost, index), with
 // (1 << 30, 0) as the starting best: exactly the reference's raster
 // loop with strict < across dy rows and a first-index argmin inside a
-// row, whatever order the candidates are reduced in. int_search_pair_u8
-// searches a 16-region and its four 8-blocks in one pass: the 8-block
+// row, whatever order the candidates are reduced in. int_search_pair_*
+// search a 16-region and its four 8-blocks in one pass: the 8-block
 // (jj, ii) window is the region window cut at (8 jj, 8 ii), as
 // me_all_sizes cuts it, so each 8-block SAD is one quadrant of the
 // 16-block sum.
@@ -71,9 +71,23 @@
 // 4 R SADs, and each pair candidate folds 5 keys (PERF.md counts them
 // from the SASS and gives the time of each search against its bound).
 //
-// The current plane is int32 and holds 8-bit samples in [0, 255] (the
+// The current plane is int32 and holds samples in [0, 2^bd - 1] (the
 // source plane, or its weight-compensated copy, which clamps); the
-// kernel keeps the low byte of each.
+// kernel keeps the low byte of each at 8 bits, the low 16 bits at 10.
+//
+// Main10 (the _u16 entry points) runs the same design on 2-byte
+// samples: a lane still takes 4 words (16 bytes) of a row, now 8
+// samples, so a 16-block row takes 2 lanes and a 32-block row 4; a
+// row's realignment is a funnel shift of 0 or 16 bits; the SAD is one
+// scalar vabsdiff with its accumulator per sample, on each half-word
+// of a word. sm_90 has no 16-bit SAD instruction: ptxas expands the
+// half-word vabsdiff into about 3 integer instructions (20 lanes a
+// clock per SM against VABSDIFF4's 62) and the packed vabsdiff2 into
+// about 9 (7 lanes); csrc/probes/int_rates.cu measures both. In the
+// pair search each of the 2 lanes holds one column of 8-blocks (top
+// and bottom sums), and the region sum adds the two lanes with one
+// shuffle after the walk. A 32-block SAD at 10 bits stays under 2^20,
+// so the (1 << 30, 0) start key and the 64-bit keys hold as at 8 bits.
 //
 // Interface: plain C entry points bound through ctypes. A call launches
 // on the given stream, allocates nothing, and returns cudaGetLastError().
@@ -164,8 +178,23 @@ __device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b,
   return d;
 }
 
-// Starts the copies of group gi into the staging buffer buf.
-template <int N, bool kPair>
+// d = |a - b| summed over the 2 half-words, plus c: two scalar
+// vabsdiff with half-word selectors and the accumulator (the faster of
+// the two expansions ptxas gives a 16-bit SAD on sm_90; the packed
+// vabsdiff2, __vsadu2, takes about 3 times as long).
+__device__ __forceinline__ uint32_t sad2(uint32_t a, uint32_t b,
+                                         uint32_t c) {
+  uint32_t t, d;
+  asm("vabsdiff.u32.u32.u32.add %0, %1.h0, %2.h0, %3;"
+      : "=r"(t) : "r"(a), "r"(b), "r"(c));
+  asm("vabsdiff.u32.u32.u32.add %0, %1.h1, %2.h1, %3;"
+      : "=r"(d) : "r"(a), "r"(b), "r"(t));
+  return d;
+}
+
+// Starts the copies of group gi into the staging buffer buf (kB bytes
+// a sample).
+template <int N, bool kPair, int kB>
 __device__ __forceinline__ void stage(const Geo& g, int gi, uint8_t* buf,
                                       const uint8_t* __restrict__ win,
                                       const int32_t* __restrict__ cur,
@@ -174,9 +203,9 @@ __device__ __forceinline__ void stage(const Geo& g, int gi, uint8_t* buf,
   constexpr int kThreads = threads_of(kPair);
   const int u0 = gi * g.units;
   const int un = min(g.units, g.nb - u0);
-  const int ss = g.s * g.s;
+  const int ss = g.s * g.s * kB;
   const int ry0 = u0 / g.bx;
-  // windows: un x (s x s) contiguous bytes, copied in the widest unit
+  // windows: un x (s x s x kB) contiguous bytes, copied in the widest unit
   // that their base and size allow (bytes are plain loads and stores,
   // which the barrier before their use makes visible)
   for (int sl = 0; sl < un; ++sl) {
@@ -240,30 +269,37 @@ __device__ __forceinline__ void stage(const Geo& g, int gi, uint8_t* buf,
 // it repeats candidates of the group before, which cannot change a
 // minimum), lane l of kL (its 4 words of each current row). Returns the
 // best cost and its index for each output; candidates are met in
-// ascending index, so a strict < keeps the first of equal costs.
-template <int N, bool kPair, int R>
+// ascending index, so a strict < keeps the first of equal costs. With
+// 2-byte samples the pair's lane l holds the 8-blocks of column l
+// only; the other outputs keep INT_MAX, which the reduction over the
+// unit's lanes passes over.
+template <int N, bool kPair, int R, int kB>
 __device__ __forceinline__ void search_item(
     int item, const Geo& g, const uint8_t* wslot, const uint32_t* cslot,
     const int32_t* spx, const int32_t* spy, int (&bc)[kPair ? 5 : 1],
     int (&bi)[kPair ? 5 : 1]) {
   constexpr int kOut = kPair ? 5 : 1;
-  constexpr int kL = kPair ? 1 : 2;     // lanes per candidate
-  constexpr int kCW = N / 4;            // words in a current row
+  constexpr int kL = N * kB / 16;       // lanes per candidate
+  constexpr int kCW = N * kB / 4;       // words in a current row
   static_assert(kCW == 4 * kL, "a lane takes 4 words of a row");
+  static_assert(!kPair || kL <= 2, "a pair lane holds whole 8-blocks");
+  // partial sums per candidate: the pair's four quadrants (one lane)
+  // or its lane's top and bottom 8-block (two lanes); else one
+  constexpr int kQ = kPair ? (kL == 1 ? 4 : 2) : 1;
   const int l = item & (kL - 1);
   const int rest = item / kL;
   const int grp = rest / g.side;
   const int dx = rest - grp * g.side;
   const int dy0 = min(grp * R, g.side - R);
   const uint32_t* crow = cslot + 4 * l;
-  // window row dy0 + r starts at byte a0 + r s; 4 s bytes are s words,
-  // so rows r, r + 4, r + 8, ... share a shift and a word step
-  const int a0 = (g.lead + dy0) * g.s + g.lead + dx + 16 * l;
+  // window row dy0 + r starts at byte a0 + r s kB; 4 s kB bytes are
+  // s kB words, so rows r, r + 4, r + 8, ... share a shift and a step
+  const int a0 = ((g.lead + dy0) * g.s + g.lead + dx) * kB + 16 * l;
   const uint32_t* wrow[4];
   uint32_t sh[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const int aq = a0 + q * g.s;
+    const int aq = a0 + q * g.s * kB;
     wrow[q] = reinterpret_cast<const uint32_t*>(wslot) + (aq >> 2);
     sh[q] = static_cast<uint32_t>(aq & 3) * 8;
   }
@@ -277,11 +313,11 @@ __device__ __forceinline__ void search_item(
     if (cost < bc[o]) bc[o] = cost, bk[o] = k;
   };
   uint32_t c[R][4];                     // ring of current rows
-  uint32_t acc[R][kPair ? 4 : 1];
+  uint32_t acc[R][kQ];
 #pragma unroll
   for (int k = 0; k < R; ++k)
 #pragma unroll
-    for (int q = 0; q < (kPair ? 4 : 1); ++q) acc[k][q] = 0;
+    for (int q = 0; q < kQ; ++q) acc[k][q] = 0;
 
 #pragma unroll
   for (int r = 0; r < R + N - 1; ++r) {
@@ -293,7 +329,7 @@ __device__ __forceinline__ void search_item(
       c[r % R][3] = v.w;
     }
     const uint32_t* p = wrow[r & 3];
-    wrow[r & 3] = p + g.s;
+    wrow[r & 3] = p + g.s * kB;
     uint32_t w[5];
 #pragma unroll
     for (int j = 0; j < 5; ++j) w[j] = p[j];
@@ -307,10 +343,15 @@ __device__ __forceinline__ void search_item(
       if (i < 0 || i >= N) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int q = kPair ? 2 * (i >= N / 2) + (j >= 2) : 0;
-        acc[k][q] = sad4(ref[j], c[i % R][j], acc[k][q]);
+        const int q = !kPair ? 0
+                      : kQ == 4 ? 2 * (i >= N / 2) + (j >= 2)
+                                : (i >= N / 2);
+        if constexpr (kB == 1)
+          acc[k][q] = sad4(ref[j], c[i % R][j], acc[k][q]);
+        else
+          acc[k][q] = sad2(ref[j], c[i % R][j], acc[k][q]);
       }
-      if constexpr (kPair) {
+      if constexpr (kPair && kQ == 4) {
         if (i == N / 2 - 1) {             // top 8-blocks complete
           fold(0, k, acc[k][0]);
           fold(1, k, acc[k][1]);
@@ -323,25 +364,44 @@ __device__ __forceinline__ void search_item(
       }
     }
   }
-  if constexpr (!kPair) {
-    const unsigned pair_mask = 3u << (threadIdx.x & 30);
+  // the lanes of one candidate are kL consecutive lanes of a warp
+  const unsigned lane_mask = ((1u << kL) - 1) << (threadIdx.x & (32 - kL));
+  if constexpr (kPair && kQ == 2) {
 #pragma unroll
-    for (int k = 0; k < R; ++k)
-      fold(0, k, acc[k][0] + __shfl_xor_sync(pair_mask, acc[k][0], 1));
+    for (int k = 0; k < R; ++k) {
+      const uint32_t top = acc[k][0], bot = acc[k][1];
+      if (l == 0) {
+        fold(0, k, top);
+        fold(2, k, bot);
+      } else {
+        fold(1, k, top);
+        fold(3, k, bot);
+      }
+      fold(4, k, top + bot + __shfl_xor_sync(lane_mask, top + bot, 1));
+    }
+  } else if constexpr (!kPair) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      uint32_t sad = acc[k][0];
+#pragma unroll
+      for (int m = 1; m < kL; m *= 2)
+        sad += __shfl_xor_sync(lane_mask, sad, m);
+      fold(0, k, sad);
+    }
   }
 #pragma unroll
   for (int o = 0; o < kOut; ++o) bi[o] = (dy0 + bk[o]) * g.side + dx;
 }
 
 // N: current block size (16 for the pair); kPair: also the four
-// 8-blocks; R: dy candidates per thread.
-template <int N, bool kPair, int R>
+// 8-blocks; R: dy candidates per thread; kB: bytes a sample (1 or 2).
+template <int N, bool kPair, int R, int kB>
 __global__ void __launch_bounds__(threads_of(kPair), min_blocks_of(kPair))
 int_search_kernel(const uint8_t* __restrict__ win,
                   const int32_t* __restrict__ cur, Geo g, Out a, Out b) {
   constexpr int kOut = kPair ? 5 : 1;   // pair: 8-blocks 0-3, region 4
   constexpr int kThreads = threads_of(kPair);
-  constexpr int kCurWords = N * N / 4;
+  constexpr int kCurWords = N * N * kB / 4;
   extern __shared__ __align__(16) uint8_t smem[];
   uint32_t* scur = reinterpret_cast<uint32_t*>(smem + g.off_cur);
   long long* skey = reinterpret_cast<long long*>(smem + g.off_key);
@@ -353,30 +413,41 @@ int_search_kernel(const uint8_t* __restrict__ win,
   const int passes = (g.units * g.items + kThreads - 1) / kThreads;
 
   int gi = blockIdx.x;
-  stage<N, kPair>(g, gi, smem, win, cur, a, b, tid);
+  stage<N, kPair, kB>(g, gi, smem, win, cur, a, b, tid);
   cp_async_commit();
   for (int it = 0; gi < g.ngroups; gi += gridDim.x, ++it) {
     uint8_t* buf = smem + (it & 1) * buf_bytes;
     const int next = gi + gridDim.x;
     if (next < g.ngroups)
-      stage<N, kPair>(g, next, smem + ((it + 1) & 1) * buf_bytes, win, cur,
-                      a, b, tid);
+      stage<N, kPair, kB>(g, next, smem + ((it + 1) & 1) * buf_bytes, win,
+                          cur, a, b, tid);
     cp_async_commit();
     cp_async_wait_prev();               // this group's copies are done
     __syncthreads();
 
     const int u0 = gi * g.units;
     const int un = min(g.units, g.nb - u0);
-    // current blocks, low bytes packed 4 to a word; start keys
+    // current blocks, low bytes packed 4 to a word (low half-words 2
+    // to a word); start keys
     for (int sl = 0; sl < un; ++sl) {
       const int4* src = reinterpret_cast<const int4*>(
           buf + sl * g.slot_bytes + g.win_bytes);
-      for (int t = tid; t < kCurWords; t += kThreads) {
+      for (int t = tid; t < N * N / 4; t += kThreads) {
         const int4 v = src[t];
-        scur[sl * kCurWords + t] = static_cast<uint32_t>(v.x & 255) |
-                                   static_cast<uint32_t>(v.y & 255) << 8 |
-                                   static_cast<uint32_t>(v.z & 255) << 16 |
-                                   static_cast<uint32_t>(v.w & 255) << 24;
+        if constexpr (kB == 1) {
+          scur[sl * kCurWords + t] =
+              static_cast<uint32_t>(v.x & 255) |
+              static_cast<uint32_t>(v.y & 255) << 8 |
+              static_cast<uint32_t>(v.z & 255) << 16 |
+              static_cast<uint32_t>(v.w & 255) << 24;
+        } else {
+          scur[sl * kCurWords + 2 * t] =
+              static_cast<uint32_t>(v.x & 0xffff) |
+              static_cast<uint32_t>(v.y & 0xffff) << 16;
+          scur[sl * kCurWords + 2 * t + 1] =
+              static_cast<uint32_t>(v.z & 0xffff) |
+              static_cast<uint32_t>(v.w & 0xffff) << 16;
+        }
       }
     }
     for (int t = tid; t < un * kOut; t += kThreads)
@@ -394,8 +465,8 @@ int_search_kernel(const uint8_t* __restrict__ win,
         const uint8_t* sb = buf + slot * g.slot_bytes;
         const int32_t* spx =
             reinterpret_cast<const int32_t*>(sb + g.win_bytes + 4 * N * N);
-        search_item<N, kPair, R>(item, g, sb, scur + slot * kCurWords, spx,
-                                 spx + kOut * g.side, bc, bi);
+        search_item<N, kPair, R, kB>(item, g, sb, scur + slot * kCurWords,
+                                     spx, spx + kOut * g.side, bc, bi);
       }
       // min over the unit's lanes of this warp (least cost, then least
       // index among the lanes that have it), then over its warps
@@ -429,11 +500,11 @@ int_search_kernel(const uint8_t* __restrict__ win,
 
 int round16(int x) { return (x + 15) & ~15; }
 
-template <int N, bool kPair, int R>
+template <int N, bool kPair, int R, int kB>
 int run(const void* win, int nb, int s, int lead, int side, const void* cur,
         int cur_w, int bx, Out a, Out b, cudaStream_t stream) {
   constexpr int kOut = kPair ? 5 : 1;
-  constexpr int kL = kPair ? 1 : 2;
+  constexpr int kL = N * kB / 16;
   constexpr int kThreads = threads_of(kPair);
   const int groups_dy = (side + R - 1) / R;
   Geo g{};
@@ -442,12 +513,12 @@ int run(const void* win, int nb, int s, int lead, int side, const void* cur,
   g.side = side;
   g.nb = nb;
   g.items = side * groups_dy * kL;
-  g.win_bytes = round16(s * s + 16);    // + the last row's fifth word
+  g.win_bytes = round16(s * s * kB + 16);  // + the last row's 5th word
   g.slot_bytes = g.win_bytes + 4 * N * N + round16(4 * 2 * kOut * side);
   // units per group: the fewest that leave under 5% of the passes'
   // threads idle, within the shared memory of one of min_blocks_of
   // blocks on an SM
-  const int per_unit = 2 * g.slot_bytes + N * N + 8 * kOut;
+  const int per_unit = 2 * g.slot_bytes + N * N * kB + 8 * kOut;
   const int max_units =
       max(1, min(nb, kSmemMax / min_blocks_of(kPair) / per_unit));
   int units = 1;
@@ -463,17 +534,18 @@ int run(const void* win, int nb, int s, int lead, int side, const void* cur,
   g.units = units;
   g.ngroups = (nb + units - 1) / units;
   g.off_cur = 2 * units * g.slot_bytes;
-  g.off_key = g.off_cur + round16(units * N * N);
+  g.off_key = g.off_cur + round16(units * N * N * kB);
   const int smem = g.off_key + 8 * kOut * units;
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   g.cur_w = cur_w;
   g.bx = bx;
   const uintptr_t win_addr = reinterpret_cast<uintptr_t>(win);
-  g.win_align = win_addr % 16 == 0 && (s * s) % 16 == 0 ? 16
-                : win_addr % 4 == 0 && (s * s) % 4 == 0 ? 4 : 1;
+  const int ss = s * s * kB;
+  g.win_align = win_addr % 16 == 0 && ss % 16 == 0 ? 16
+                : win_addr % 4 == 0 && ss % 4 == 0 ? 4 : 1;
   g.cur16 = (reinterpret_cast<uintptr_t>(cur) % 16 == 0) && cur_w % 4 == 0;
 
-  auto* kernel = int_search_kernel<N, kPair, R>;
+  auto* kernel = int_search_kernel<N, kPair, R, kB>;
   if (smem > kSmemDefault) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -493,19 +565,20 @@ int run(const void* win, int nb, int s, int lead, int side, const void* cur,
 
 // The R of a side, among the compiled values no larger than the side
 // (1 always is): the least integer instructions per dx, counting per dy
-// group R candidates of n^2/4 SADs and their folds (kPair: 5 keys and
-// the halves' sums, about 21 instructions; else about 6) and R + n - 1
-// window rows of 5 (4 funnel shifts and a pointer step) per lane.
-int pick_r(const int (&rs)[4], int n, bool pair, int side) {
-  const int lanes = pair ? 1 : 2;
-  const long long fold = pair ? 21 : 6;
+// group R candidates of n^2 kB / 4 SADs and their folds (kPair: 5 keys
+// and the halves' sums, about 21 instructions at 1 byte a sample and 14
+// at 2; else about 6) and R + n - 1 window rows of 5 (4 funnel shifts
+// and a pointer step) per lane.
+int pick_r(const int (&rs)[4], int n, bool pair, int kb, int side) {
+  const int lanes = n * kb / 16;
+  const long long fold = pair ? (kb == 1 ? 21 : 14) : 6;
   int best = 1;
   long long best_cost = LLONG_MAX;
   for (int r : rs) {
     if (r > side) continue;
     const long long groups = (side + r - 1) / r;
     const long long cost =
-        groups * (r * (n * n / 4 + fold) + (r + n - 1) * lanes * 5);
+        groups * (r * (n * n * kb / 4 + fold) + (r + n - 1) * lanes * 5);
     if (cost < best_cost) best = r, best_cost = cost;
   }
   return best;
@@ -521,11 +594,60 @@ Out out_of(const void* penx, const void* peny, int nb, void* cost,
              static_cast<int32_t*>(cost), static_cast<int32_t*>(idx)};
 }
 
+template <int kB>
+int search_pair(const void* win, int nb16, int s, int lead, int side,
+                const void* cur, int cur_w, int bx16, const void* penx8,
+                const void* peny8, const void* penx16, const void* peny16,
+                void* cost8, void* idx8, void* cost16, void* idx16,
+                void* stream) {
+  if (nb16 <= 0) return static_cast<int>(cudaGetLastError());
+  const Out a = out_of(penx8, peny8, 4 * nb16, cost8, idx8);
+  const Out b = out_of(penx16, peny16, nb16, cost16, idx16);
+  auto* st = static_cast<cudaStream_t>(stream);
+  switch (pick_r(kPairR, 16, true, kB, side)) {
+    case 1:
+      return run<16, true, 1, kB>(win, nb16, s, lead, side, cur, cur_w,
+                                  bx16, a, b, st);
+    case 5:
+      return run<16, true, 5, kB>(win, nb16, s, lead, side, cur, cur_w,
+                                  bx16, a, b, st);
+    case 6:
+      return run<16, true, 6, kB>(win, nb16, s, lead, side, cur, cur_w,
+                                  bx16, a, b, st);
+    default:
+      return run<16, true, 7, kB>(win, nb16, s, lead, side, cur, cur_w,
+                                  bx16, a, b, st);
+  }
+}
+
+template <int kB>
+int search_single(const void* win, int nb, int s, int lead, int side,
+                  const void* cur, int cur_w, int bx, const void* penx,
+                  const void* peny, void* cost, void* idx, void* stream) {
+  if (nb <= 0) return static_cast<int>(cudaGetLastError());
+  const Out a = out_of(penx, peny, nb, cost, idx);
+  auto* st = static_cast<cudaStream_t>(stream);
+  switch (pick_r(kSingleR, 32, false, kB, side)) {
+    case 1:
+      return run<32, false, 1, kB>(win, nb, s, lead, side, cur, cur_w, bx,
+                                   a, a, st);
+    case 5:
+      return run<32, false, 5, kB>(win, nb, s, lead, side, cur, cur_w, bx,
+                                   a, a, st);
+    case 7:
+      return run<32, false, 7, kB>(win, nb, s, lead, side, cur, cur_w, bx,
+                                   a, a, st);
+    default:
+      return run<32, false, 13, kB>(win, nb, s, lead, side, cur, cur_w, bx,
+                                    a, a, st);
+  }
+}
+
 }  // namespace
 
 // A 16-region and its four 8-blocks. win (nb16, s, s) uint8 region
-// windows, any s; cur (16 by16, 16 bx16) int32 with row length
-// cur_w = 16 bx16; penx8/peny8 (side, 4 nb16), penx16/peny16
+// windows (uint16 for _u16), any s; cur (16 by16, 16 bx16) int32 with
+// row length cur_w = 16 bx16; penx8/peny8 (side, 4 nb16), penx16/peny16
 // (side, nb16) int32; results (4 nb16,) and (nb16,) int32.
 extern "C" int int_search_pair_u8(const void* win, int nb16, int s,
                                   int lead, int side, const void* cur,
@@ -534,48 +656,38 @@ extern "C" int int_search_pair_u8(const void* win, int nb16, int s,
                                   const void* peny16, void* cost8,
                                   void* idx8, void* cost16, void* idx16,
                                   void* stream) {
-  if (nb16 <= 0) return static_cast<int>(cudaGetLastError());
-  const Out a = out_of(penx8, peny8, 4 * nb16, cost8, idx8);
-  const Out b = out_of(penx16, peny16, nb16, cost16, idx16);
-  auto* st = static_cast<cudaStream_t>(stream);
-  switch (pick_r(kPairR, 16, true, side)) {
-    case 1:
-      return run<16, true, 1>(win, nb16, s, lead, side, cur, cur_w, bx16, a,
-                              b, st);
-    case 5:
-      return run<16, true, 5>(win, nb16, s, lead, side, cur, cur_w, bx16, a,
-                              b, st);
-    case 6:
-      return run<16, true, 6>(win, nb16, s, lead, side, cur, cur_w, bx16, a,
-                              b, st);
-    default:
-      return run<16, true, 7>(win, nb16, s, lead, side, cur, cur_w, bx16, a,
-                              b, st);
-  }
+  return search_pair<1>(win, nb16, s, lead, side, cur, cur_w, bx16, penx8,
+                        peny8, penx16, peny16, cost8, idx8, cost16, idx16,
+                        stream);
 }
 
-// 32-blocks. win (nb, s, s) uint8, any s; cur (32 by, 32 bx) int32 with
-// row length cur_w = 32 bx; penx/peny (side, nb) int32; results (nb,)
-// int32.
+extern "C" int int_search_pair_u16(const void* win, int nb16, int s,
+                                   int lead, int side, const void* cur,
+                                   int cur_w, int bx16, const void* penx8,
+                                   const void* peny8, const void* penx16,
+                                   const void* peny16, void* cost8,
+                                   void* idx8, void* cost16, void* idx16,
+                                   void* stream) {
+  return search_pair<2>(win, nb16, s, lead, side, cur, cur_w, bx16, penx8,
+                        peny8, penx16, peny16, cost8, idx8, cost16, idx16,
+                        stream);
+}
+
+// 32-blocks. win (nb, s, s) uint8 (uint16 for _u16), any s; cur
+// (32 by, 32 bx) int32 with row length cur_w = 32 bx; penx/peny
+// (side, nb) int32; results (nb,) int32.
 extern "C" int int_search_u8(const void* win, int nb, int s, int lead,
                              int side, const void* cur, int cur_w, int bx,
                              const void* penx, const void* peny, void* cost,
                              void* idx, void* stream) {
-  if (nb <= 0) return static_cast<int>(cudaGetLastError());
-  const Out a = out_of(penx, peny, nb, cost, idx);
-  auto* st = static_cast<cudaStream_t>(stream);
-  switch (pick_r(kSingleR, 32, false, side)) {
-    case 1:
-      return run<32, false, 1>(win, nb, s, lead, side, cur, cur_w, bx, a, a,
-                               st);
-    case 5:
-      return run<32, false, 5>(win, nb, s, lead, side, cur, cur_w, bx, a, a,
-                               st);
-    case 7:
-      return run<32, false, 7>(win, nb, s, lead, side, cur, cur_w, bx, a, a,
-                               st);
-    default:
-      return run<32, false, 13>(win, nb, s, lead, side, cur, cur_w, bx, a,
-                                a, st);
-  }
+  return search_single<1>(win, nb, s, lead, side, cur, cur_w, bx, penx,
+                          peny, cost, idx, stream);
+}
+
+extern "C" int int_search_u16(const void* win, int nb, int s, int lead,
+                              int side, const void* cur, int cur_w, int bx,
+                              const void* penx, const void* peny,
+                              void* cost, void* idx, void* stream) {
+  return search_single<2>(win, nb, s, lead, side, cur, cur_w, bx, penx,
+                          peny, cost, idx, stream);
 }

@@ -23,6 +23,26 @@ __device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b,
   return d;
 }
 
+// the packed 16-bit SAD: two 16-bit absolute differences and their
+// accumulator (no instruction of its own on sm_90: about 9 integer ones)
+__device__ __forceinline__ uint32_t sad2(uint32_t a, uint32_t b,
+                                         uint32_t c) {
+  uint32_t d;
+  asm volatile("vabsdiff2.u32.u32.u32.add %0, %1, %2, %3;"
+               : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// the Main10 search's SAD: one 16-bit absolute difference (the low
+// half-words) and its accumulator (expanded too: about 3 integer ones)
+__device__ __forceinline__ uint32_t sadh(uint32_t a, uint32_t b,
+                                         uint32_t c) {
+  uint32_t d;
+  asm volatile("vabsdiff.u32.u32.u32.add %0, %1.h0, %2.h0, %3;"
+               : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
 __device__ __forceinline__ uint32_t shf(uint32_t a, uint32_t b) {
   uint32_t d;
   asm volatile("shf.r.wrap.b32 %0, %1, %2, %1;" : "=r"(d) : "r"(a), "r"(b));
@@ -51,8 +71,9 @@ __device__ __forceinline__ long long global_ns() {
 }
 
 // op 0: VABSDIFF4 (accumulating); 1: SHF; 2: IMAD; 3: half the chains
-// VABSDIFF4 and half SHF; 4: FFMA. Each block writes its SM clocks and
-// its start and end on the global nanosecond timer.
+// VABSDIFF4 and half SHF; 4: FFMA; 5: vabsdiff2 (accumulating); 6:
+// scalar vabsdiff of half-words (accumulating). Each block writes its
+// SM clocks and its start and end on the global nanosecond timer.
 template <int kOp>
 __global__ void __launch_bounds__(kThreads)
 chains(uint32_t y, int iters, uint32_t* sink, long long* cycles,
@@ -72,8 +93,12 @@ chains(uint32_t y, int iters, uint32_t* sink, long long* cycles,
         acc[j] = shf(acc[j], y + j);
       else if (kOp == 2)
         acc[j] = imad(acc[j], y + j);
-      else
+      else if (kOp == 4)
         acc[j] = ffma(acc[j], y + j);
+      else if (kOp == 5)
+        acc[j] = sad2(acc[j], y, acc[j]);
+      else
+        acc[j] = sadh(acc[j], y, acc[j]);
     }
   }
   __syncthreads();
@@ -106,8 +131,10 @@ extern "C" int int_rates_blocks_per_sm(int op) {
                        reinterpret_cast<const void*>(chains<1>),
                        reinterpret_cast<const void*>(chains<2>),
                        reinterpret_cast<const void*>(chains<3>),
-                       reinterpret_cast<const void*>(chains<4>)};
-  if (op < 0 || op > 4) return -1;
+                       reinterpret_cast<const void*>(chains<4>),
+                       reinterpret_cast<const void*>(chains<5>),
+                       reinterpret_cast<const void*>(chains<6>)};
+  if (op < 0 || op > 6) return -1;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fns[op], kThreads, 0);
   return n;
 }
@@ -125,6 +152,8 @@ extern "C" int int_rates_run(int op, int iters, int grid, void* sink,
     case 1: return launch<1>(iters, grid, s, c, t);
     case 2: return launch<2>(iters, grid, s, c, t);
     case 3: return launch<3>(iters, grid, s, c, t);
-    default: return launch<4>(iters, grid, s, c, t);
+    case 4: return launch<4>(iters, grid, s, c, t);
+    case 5: return launch<5>(iters, grid, s, c, t);
+    default: return launch<6>(iters, grid, s, c, t);
   }
 }

@@ -39,7 +39,7 @@ from ..ops.satd import sa8d_nxn_lanes
 from ..ops.transforms import (dct_batch, dequant_batch, idct_batch,
                               quant_batch, rdoq_batch, sign_hide_batch)
 from .intra_analysis import edge_pad, up as _up
-from .intra_recon import DeviceRef
+from .intra_recon import DeviceRef, np_pixel_dtype, pixel_dtype
 from .pgop_gpu import (B_CTU64, SIZES, _blk_sse, _blocks_of, _qp_vec_of,
                        _chroma_preds_windowed, _coarse_search_rolled,
                        _coeff_bits_est, _f32, _mvd_bits_est, _psy8_energy,
@@ -128,16 +128,17 @@ def _bframe(refs0, refs1, oy, ocb, ocr, *, qp: int, qpc: int,
     lam_i = int(round(lam))
     pad_y = 2 * me_range + 8
     pad_c = me_range + 8
+    win_dt = pixel_dtype(bit_depth)     # uint8, uint16 at 10 bits
 
     me, craws = {}, {}
     for li, (ry, rcb, rcr) in enumerate((refs0, refs1)):
         cmv = _coarse_search_rolled(_downsample4(oy), _downsample4(ry))[0] * 4
-        res, seeds = me_all_sizes(oy, pad_ref(ry.to(torch.uint8), pad_y), cmv,
+        res, seeds = me_all_sizes(oy, pad_ref(ry.to(win_dt), pad_y), cmv,
                                   lam_i, radius=me_range, pad=pad_y,
                                   bit_depth=bit_depth, want_raw=True)
         me[li] = res
-        cpad2 = torch.stack([pad_ref(rcb.to(torch.uint8), pad_c),
-                             pad_ref(rcr.to(torch.uint8), pad_c)])
+        cpad2 = torch.stack([pad_ref(rcb.to(win_dt), pad_c),
+                             pad_ref(rcr.to(win_dt), pad_c)])
         craws[li] = _chroma_preds_windowed(
             cpad2, pad_c, rcb, rcr, {n: res[n][0] for n in SIZES}, seeds,
             me_range, h, w, bit_depth, raw=True)
@@ -275,17 +276,17 @@ def _bframe(refs0, refs1, oy, ocb, ocr, *, qp: int, qpc: int,
             cf_cr, sao_p, ry_c, rcb_c, rcr_c)
 
 
-def _planes_on(ref, dev, h: int, w: int):
-    """A reference's (y, cb, cr) uint8 planes at the coded size on the
-    device: a DeviceRef in place (slot 0 of a stack), a host ReconFrame
-    uploaded."""
+def _planes_on(ref, dev, h: int, w: int, bit_depth: int = 8):
+    """A reference's (y, cb, cr) planes (pixel_dtype) at the coded size
+    on the device: a DeviceRef in place (slot 0 of a stack), a host
+    ReconFrame uploaded."""
     if isinstance(ref, DeviceRef):
         planes = (ref.y, ref.cb, ref.cr)
         if ref.y.dim() == 3:
             planes = tuple(p[0] for p in planes)
         return planes
     return tuple(torch.from_numpy(np.ascontiguousarray(
-        np.asarray(p)[:hh, :ww].astype(np.uint8))).to(dev)
+        np.asarray(p)[:hh, :ww].astype(np_pixel_dtype(bit_depth)))).to(dev)
         for p, hh, ww in ((ref.y, h, w), (ref.cb, h // 2, w // 2),
                           (ref.cr, h // 2, w // 2)))
 
@@ -317,7 +318,7 @@ def encode_bframes_gpu(frames, ref0s, ref1s, cfg: EncoderConfig, qp: int,
         """int32 planes at the scan size, one upload per distinct ref."""
         key = id(ref)
         if key not in uploaded:
-            y, cb, cr = _planes_on(ref, dev, h, w)
+            y, cb, cr = _planes_on(ref, dev, h, w, cfg.bit_depth)
             uploaded[key] = (
                 edge_pad(y.to(torch.int32), hp, wp),
                 edge_pad(cb.to(torch.int32), hp // 2, wp // 2),
@@ -329,10 +330,11 @@ def encode_bframes_gpu(frames, ref0s, ref1s, cfg: EncoderConfig, qp: int,
         if a.shape != (hh, ww):
             a = np.pad(a, ((0, hh - a.shape[0]), (0, ww - a.shape[1])),
                        mode="edge")
-        t = torch.from_numpy(np.ascontiguousarray(a.astype(np.uint8)))
+        t = torch.from_numpy(np.ascontiguousarray(a.astype(src_dt)))
         return edge_pad(t.to(dev).to(torch.int32), php, pwp)
 
     qpc = chroma_qp(qp)
+    src_dt, rdt = np_pixel_dtype(cfg.bit_depth), pixel_dtype(cfg.bit_depth)
     ctu = cfg.ctu_size
     qmj = None
     if cfg.dqp_enabled:
@@ -367,7 +369,7 @@ def encode_bframes_gpu(frames, ref0s, ref1s, cfg: EncoderConfig, qp: int,
         if qmj is not None:
             syn.qp_map = qmj[i, :(h + ctu - 1) // ctu, :(w + ctu - 1) // ctu]
         syns.append(syn)
-        dref = DeviceRef(*(p.to(torch.uint8).contiguous()
+        dref = DeviceRef(*(p.to(rdt).contiguous()
                            for p in (ry, rcb, rcr)))
         drefs.append(dref)
         recons.append(dref.to_recon())

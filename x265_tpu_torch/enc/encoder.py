@@ -47,7 +47,8 @@ from ..ops.sao import (apply_sao_component_np, choose_sao_chroma,
 from ..ops.sao_gpu import apply_sao_t, choose_sao_chroma_t, choose_sao_t
 from .intra_analysis import (analyze_chroma_gop, analyze_chroma_modes,
                              analyze_intra_frame, analyze_intra_gop)
-from .intra_recon import DeviceRef, ReconFrame, reconstruct_intra_frame
+from .intra_recon import (DeviceRef, ReconFrame, np_pixel_dtype, pixel_dtype,
+                          reconstruct_intra_frame)
 from .intra_recon_gpu import reconstruct_intra_gop_gpu
 from .pgop_gpu import (check_pgop_config, collect_pgop_gpu, ctu_grid,
                        submit_pgop_gpu)
@@ -216,9 +217,10 @@ class IntraEncoder:
                 (NalUnitType.PPS, write_pps(cfg))]
 
     def _upload(self, planes: np.ndarray) -> torch.Tensor:
-        # a reader's frames may be read-only views of its buffer
+        # a reader's frames may be read-only views of its buffer; the
+        # samples keep the configured bit depth (uint16 at 10 bits)
         return torch.from_numpy(np.require(
-            planes.astype(np.uint8, copy=False),
+            planes.astype(np_pixel_dtype(self.cfg.bit_depth), copy=False),
             requirements=("C", "W"))).to(self.device)
 
     def encode_frame(self, y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
@@ -290,7 +292,8 @@ class IntraEncoder:
             dcb = apply_sao_t(dcb, p_cb, cfg.ctu_size // 2, cfg.bit_depth)
             dcr = apply_sao_t(dcr, p_cr, cfg.ctu_size // 2, cfg.bit_depth)
             sao_params = tuple(p.cpu().numpy() for p in (p_y, p_cb, p_cr))
-        device_ref = DeviceRef(*(p.to(torch.uint8).contiguous()
+        rdt = pixel_dtype(cfg.bit_depth)
+        device_ref = DeviceRef(*(p.to(rdt).contiguous()
                                  for p in (dy, dcb, dcr)))
         recon = device_ref.to_recon() if need_recon or cfg.hash_sei \
             else None

@@ -60,6 +60,9 @@ def edge_pad(p: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
     h, w = p.shape[-2:]
     if (h, w) == (hp, wp):
         return p
+    if p.dtype == torch.uint16:
+        # advanced indexing lacks uint16 kernels: pad the same bits
+        return edge_pad(p.view(torch.int16), hp, wp).view(torch.uint16)
     yi = torch.clamp(torch.arange(hp, device=p.device), max=h - 1)
     xi = torch.clamp(torch.arange(wp, device=p.device), max=w - 1)
     return p[..., yi[:, None], xi[None, :]]
@@ -238,10 +241,10 @@ def _analyze_frame(plane: torch.Tensor, qp: int, lam_bits, lam_split,
 
 def analyze_intra_gop(orig_y: torch.Tensor, qp: int, ctu_size: int = 32,
                       bit_depth: int = 8, intra_nxn: bool = False):
-    """GOP analysis: orig_y (F, H, W) 8-aligned uint8 planes on the
-    device. Returns (depth8, mode8, nxn8, mode4) tensors: depth/mode on
-    the (F, H/8, W/8) grid, nxn8 bool (PART_NxN at min CU), mode4
-    (F, H/4, W/4) per-PU modes."""
+    """GOP analysis: orig_y (F, H, W) 8-aligned uint8 (uint16 at 10
+    bits) planes on the device. Returns (depth8, mode8, nxn8, mode4)
+    tensors: depth/mode on the (F, H/8, W/8) grid, nxn8 bool (PART_NxN
+    at min CU), mode4 (F, H/4, W/4) per-PU modes."""
     nf, h, w = orig_y.shape
     dev = orig_y.device
     lam = lambda_from_qp(qp)

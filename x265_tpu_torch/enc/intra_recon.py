@@ -2,8 +2,8 @@
 
 ReconFrame holds host (numpy) planes; DeviceRef keeps the reference
 picture (or the stack of reference pictures) on the device as narrow
-uint8 torch planes at the coded size, so an I -> P chain never
-round-trips through the host.
+torch planes at the coded size (uint8 at 8 bits, uint16 at 10), so an
+I -> P chain never round-trips through the host.
 
 reconstruct_intra_frame is the host-recon I path (a copy of
 x265_tpu/enc/intra_recon.py): given the analysis decisions it
@@ -19,6 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..bitstream.syntax import FrameIntraSyntax
 from ..common.params import EncoderConfig
@@ -26,6 +27,17 @@ from ..common.tables import chroma_qp, intra_scan_idx
 from ..ops.intra_np import canonical_refs, filter_refs, intra_pred_np
 from ..ops.transforms import (dct_np, dequant_np, idct_np, quant_np,
                               sign_hide_np)
+
+
+def pixel_dtype(bit_depth: int):
+    """The torch storage type of bit_depth-bit samples (the DeviceRef
+    and window type): uint8 at 8 bits, uint16 at 10."""
+    return torch.uint8 if bit_depth == 8 else torch.uint16
+
+
+def np_pixel_dtype(bit_depth: int):
+    """The numpy counterpart of pixel_dtype."""
+    return np.uint8 if bit_depth == 8 else np.uint16
 
 
 @dataclass
@@ -37,9 +49,10 @@ class ReconFrame:
 
 @dataclass
 class DeviceRef:
-    """Reference picture kept on the device (torch uint8 planes at the
-    CODED size): one picture, or the (R, ...) stack of the R most
-    recent pictures that the P path carries, slot 0 the newest."""
+    """Reference picture kept on the device (torch uint8 or uint16
+    planes, pixel_dtype, at the CODED size): one picture, or the
+    (R, ...) stack of the R most recent pictures that the P path
+    carries, slot 0 the newest."""
     y: object            # torch (h, w) or (R, h, w)
     cb: object           # torch (h/2, w/2) or (R, h/2, w/2)
     cr: object           # torch (h/2, w/2) or (R, h/2, w/2)

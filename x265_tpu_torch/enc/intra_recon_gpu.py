@@ -411,9 +411,9 @@ def reconstruct_intra_gop_gpu(orig_y: torch.Tensor, orig_cb: torch.Tensor,
                               fixed_steps: bool | None = None):
     """Reconstruct a batch of intra frames on the device.
 
-    orig_*: (F, H, W) uint8 planes on the device (8-aligned coded
-    size); depth8/mode8/cmode8/nxn8: (F, H/8, W/8) and mode4
-    (F, H/4, W/4) host decision maps, depth8 relative to the SPS CTU
+    orig_*: (F, H, W) uint8 (uint16 at 10 bits) planes on the device
+    (8-aligned coded size); depth8/mode8/cmode8/nxn8: (F, H/8, W/8) and
+    mode4 (F, H/4, W/4) host decision maps, depth8 relative to the SPS CTU
     (at CTU 64 never 0: intra CUs cap at 32). Returns (syns, (rec_y,
     rec_cb, rec_cr)): FrameIntraSyntax records with host coefficient
     planes, and int32 device recon planes (F, H, W) / (F, H/2, W/2).

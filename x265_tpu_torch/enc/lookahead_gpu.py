@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .intra_recon import np_pixel_dtype
 from ..ops.fma import fma32
 from ..ops.intra import intra_pred_all_modes
 from ..ops.satd import sa8d_batch
@@ -313,8 +314,10 @@ def lookahead_gop(ys: np.ndarray, cbs: np.ndarray, crs: np.ndarray, cfg,
     f, h, w = ys.shape
 
     def up(a):
+        # the samples keep the configured bit depth (uint16 at 10 bits)
         return torch.from_numpy(np.ascontiguousarray(
-            np.asarray(a, np.uint8))).to(dev).to(torch.int32)
+            np.asarray(a, np_pixel_dtype(cfg.bit_depth)))).to(dev) \
+            .to(torch.int32)
 
     ys_t, cbs_t, crs_t = up(ys), up(cbs), up(crs)
     n16y, n16x = h // 16, w // 16

@@ -55,7 +55,7 @@ from ..ops.transforms import (dct_batch, dct_lanes, dequant_batch,
                               quant_batch, quant_lanes, rdoq_lanes,
                               sign_hide_batch, sign_hide_lanes)
 from .intra_analysis import _MODE_BITS, block_sum_seq, edge_pad, up as _up
-from .intra_recon import DeviceRef, ReconFrame
+from .intra_recon import DeviceRef, ReconFrame, np_pixel_dtype, pixel_dtype
 from .intra_recon_gpu import _scan_sel, _substitute
 
 SIZES = (8, 16, 32)
@@ -130,11 +130,12 @@ def _chroma_preds_windowed(cpad2, pc, refcb, refcr, mvs, seeds, radius,
                            h, w, bit_depth, wvec=None,
                            weight_denom: int = 6, ref16=None, ref32=None,
                            cstride: int = 0, zplanes=None, raw: bool = False):
-    """cpad2: (2, Hc+2pc, Wc+2pc) stacked padded uint8 chroma refs, or
-    with multi-reference prediction (2, R*(Hc+2pc), Wc+2pc) with
-    cstride = Hc+2pc rows per reference and ref16/ref32 the per-region
-    selections; mvs: {n: (B, 2) qpel}; seeds: {16: (sx, sy), 32: (sx,
-    sy)} clamped full-pel seeds. MVs from the windowed search lie within
+    """cpad2: (2, Hc+2pc, Wc+2pc) stacked padded uint8 (uint16 at 10
+    bits) chroma refs, or with multi-reference prediction
+    (2, R*(Hc+2pc), Wc+2pc) with cstride = Hc+2pc rows per reference and
+    ref16/ref32 the per-region selections; mvs: {n: (B, 2) qpel};
+    seeds: {16: (sx, sy), 32: (sx, sy)} clamped full-pel seeds. MVs from
+    the windowed search lie within
     seed +- radius (qpel +-3/4); zero-MV winners take the co-located
     blocks, of zplanes[{16, 32}] = (cb, cr) (the selected references'
     planes) when given, else of refcb/refcr. wvec: explicit weights, cb
@@ -196,7 +197,9 @@ def _chroma_preds_windowed(cpad2, pc, refcb, refcr, mvs, seeds, radius,
             s0ye, s0xe = s0y16, s0x16
             rel_y = rel_x = 0
         else:
-            win_b, nshift = win16[parent], r + 6
+            # (uint16 windows index as int16: the same 10-bit samples)
+            win_b, nshift = (win16.view(torch.int16) if win16.dtype ==
+                             torch.uint16 else win16)[parent], r + 6
             s0ye, s0xe = s0y16[parent], s0x16[parent]
             rel_y = ((torch.arange(by8, dtype=torch.int32, device=dev) % 2)
                      .repeat_interleave(bx8)) * 4
@@ -1178,9 +1181,11 @@ def _pgop_frame(refs, oy, ocb, ocr, wvec, *, qp: int, qpc: int,
         cmv16, cmv32, ref16, ref32, zy, zc = _select_refs(
             oy_s, ry_s, rcb_s, rcr_s, lam_i, coarse_pen, nrefs)
     # the references stacked vertically, one padded plane per component
-    ry_pad = torch.cat([pad_ref(p.to(torch.uint8), pad_y) for p in ry_s])
+    # windows in the narrow sample type (uint8, uint16 at 10 bits)
+    win_dt = pixel_dtype(bit_depth)
+    ry_pad = torch.cat([pad_ref(p.to(win_dt), pad_y) for p in ry_s])
     cpad2 = torch.stack([
-        torch.cat([pad_ref(p.to(torch.uint8), pad_c) for p in planes])
+        torch.cat([pad_ref(p.to(win_dt), pad_c) for p in planes])
         for planes in (rcb_s, rcr_s)])
     refs_grid = {8: _up(ref16, 2)[:h // 8, :w // 8], 16: ref16, 32: ref32}
     # the selections; with one reference they are all 0, which None
@@ -1295,6 +1300,15 @@ class PgopPending:
 
 B_CTU64 = ("B frames at CTU 64: waits for a reference whose CTU-64 B "
            "streams decode (ROADMAP queue 1 item 28)")
+MAIN10_SAO = ("SAO at 10 bits: waits for a reference whose 10-bit SAO "
+              "streams decode (its coder writes sao_offset_abs with the "
+              "8-bit cMax 7; ROADMAP queue 1 item 31); use --no-sao")
+
+
+def check_main10_sao(cfg: EncoderConfig) -> None:
+    """Refuse SAO at 10 bits (ROADMAP queue 1 item 31)."""
+    if cfg.bit_depth != 8 and cfg.sao:
+        raise NotImplementedError(MAIN10_SAO)
 
 
 def ctu_grid(qp_map: np.ndarray, ry: int, rx: int) -> np.ndarray:
@@ -1316,9 +1330,7 @@ def ctu_grid(qp_map: np.ndarray, ry: int, rx: int) -> np.ndarray:
 def check_pgop_config(cfg: EncoderConfig) -> None:
     """Raise for every option the P-chunk path of this package does not
     implement (NotImplementedError naming its ROADMAP queue item)."""
-    if cfg.bit_depth != 8:
-        raise NotImplementedError(
-            "10-bit: not ported yet (ROADMAP queue 1 item 19)")
+    check_main10_sao(cfg)
     if cfg.bframes > 0 and cfg.ctu_size == 64:
         raise NotImplementedError(B_CTU64)
 
@@ -1334,7 +1346,8 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
     """Enqueue a P chunk on the device; returns before the device has
     finished it (no result is read back).
 
-    orig_y: (F, H, W) uint8 planes at the coded (8-aligned) size; ref:
+    orig_y: (F, H, W) uint8 planes (uint16 at 10 bits) at the coded
+    (8-aligned) size; ref:
     the post-filter recon of the preceding frame, a host ReconFrame or
     a DeviceRef (used in place), or the DeviceRef stack of the R =
     cfg.num_refs most recent pictures (a single picture is broadcast to
@@ -1358,10 +1371,11 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
     wp = (w + m - 1) // m * m
     qp = cfg.qp if qp is None else qp
     qpc = chroma_qp(qp)
+    src_dt = np_pixel_dtype(cfg.bit_depth)
 
     def upload(planes, ph, pw):
         t = torch.from_numpy(np.ascontiguousarray(
-            np.asarray(planes).astype(np.uint8, copy=False))).to(dev)
+            np.asarray(planes).astype(src_dt, copy=False))).to(dev)
         return [edge_pad(t[i], ph, pw).to(torch.int32) for i in range(f)]
 
     oys = upload(orig_y, hp, wp)
@@ -1371,7 +1385,7 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
         planes = (ref.y, ref.cb, ref.cr)
     else:
         planes = tuple(torch.from_numpy(np.ascontiguousarray(
-            np.asarray(p)[:hh, :ww].astype(np.uint8))).to(dev)
+            np.asarray(p)[:hh, :ww].astype(src_dt))).to(dev)
             for p, hh, ww in ((ref.y, h, w), (ref.cb, h // 2, w // 2),
                               (ref.cr, h // 2, w // 2)))
     nrefs = cfg.num_refs
@@ -1430,7 +1444,8 @@ def submit_pgop_gpu(orig_y: np.ndarray, orig_cb: np.ndarray,
             nr_state=nr_state, qp_ctu=None if qmj is None else qmaps_t[i],
             seed16=None if seeds_t is None else seeds_t[i])
         outs.append(fields)
-    last_ref = DeviceRef(*(p[..., :hh, :ww].to(torch.uint8).contiguous()
+    rdt = pixel_dtype(cfg.bit_depth)
+    last_ref = DeviceRef(*(p[..., :hh, :ww].to(rdt).contiguous()
                            for p, hh, ww in ((cur[0], h, w),
                                              (cur[1], h // 2, w // 2),
                                              (cur[2], h // 2, w // 2))))

@@ -60,7 +60,9 @@ def gather_windows(src: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     """(B, w, w) windows of the uint8/uint16 plane `src` with top-left
     (ys, xs), starts resolved as gather_windows_plain says. A CUDA
     tensor goes through the kernel (csrc/gather_windows.cu, counted in
-    gather_windows.launches); a CPU tensor through the plain version."""
+    gather_windows.launches, and a uint16 plane also in
+    gather_windows.launches_u16); a CPU tensor through the plain
+    version."""
     if src.dim() != 2 or src.dtype not in _GATHER_DTYPES:
         raise ValueError(f"src must be a 2-D uint8/uint16 plane, got "
                          f"{src.dtype} {tuple(src.shape)}")
@@ -88,10 +90,13 @@ def gather_windows(src: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"gather_windows launch failed: CUDA error {err}")
     gather_windows.launches += 1
+    gather_windows.launches_u16 += src.dtype == torch.uint16
     return out
 
 
+# launches of either instance, and of the uint16 (10-bit) one alone
 gather_windows.launches = 0
+gather_windows.launches_u16 = 0
 
 
 @lru_cache(maxsize=None)
@@ -120,6 +125,9 @@ def gather_windows_ds(ref_pad: torch.Tensor, pad: int, y0s: torch.Tensor,
 
 def pad_ref(ref: torch.Tensor, pad: int) -> torch.Tensor:
     """Edge-pad a reference plane for the window gathers."""
+    if ref.dtype == torch.uint16:
+        # advanced indexing lacks uint16 kernels: pad the same bits
+        return pad_ref(ref.view(torch.int16), pad).view(torch.uint16)
     h, w = ref.shape
     yi = torch.clamp(torch.arange(-pad, h + pad, device=ref.device), 0,
                      h - 1)
@@ -342,13 +350,10 @@ def sub8_windows(w16: torch.Tensor, by16: int, bx16: int) -> torch.Tensor:
 def _check_search(name, win, cur_plane, n, pens, side, lead):
     """Argument checks shared by the two search wrappers; pens is a list
     of ((side, B) penalty tensor, B)."""
-    if win.dtype == torch.uint16:
-        raise ValueError(f"{name}: uint16 windows (10-bit) are ROADMAP "
-                         f"queue 1 item 19")
-    if win.dtype != torch.uint8 or win.dim() != 3 or \
+    if win.dtype not in _GATHER_DTYPES or win.dim() != 3 or \
             win.shape[1] != win.shape[2]:
-        raise ValueError(f"{name}: windows must be (B, S, S) uint8, got "
-                         f"{win.dtype} {tuple(win.shape)}")
+        raise ValueError(f"{name}: windows must be (B, S, S) uint8 or "
+                         f"uint16, got {win.dtype} {tuple(win.shape)}")
     if cur_plane.dtype != torch.int32 or cur_plane.dim() != 2:
         raise ValueError(f"{name}: the current plane must be 2-D int32")
     if not (0 <= lead and side >= 1 and
@@ -383,15 +388,17 @@ def int_search_pair_windows_plain(w16, cur_plane, penx8, peny8, penx16,
 def int_search_pair_windows(w16, cur_plane, penx8, peny8, penx16, peny16,
                             by16: int, bx16: int, side: int, lead: int = 4):
     """Joint integer full search of the 16-regions and their four
-    8-blocks over the (B16, S, S) uint8 region windows w16 (raster order
-    of a by16 x bx16 grid, gathered at seed - (radius + lead)), against
-    the (16 by16, 16 bx16) int32 current plane (8-bit samples).
+    8-blocks over the (B16, S, S) uint8 (8-bit) or uint16 (10-bit)
+    region windows w16 (raster order of a by16 x bx16 grid, gathered at
+    seed - (radius + lead)), against the (16 by16, 16 bx16) int32
+    current plane (samples of the windows' bit depth).
     penx8/peny8 (side, 4 B16) and penx16/peny16 (side, B16) int32
     penalties. Returns ((cost8, i8), (cost16, i16)), int32, 8-blocks in
     the raster order of the 8-grid, i = dy*side + dx: the results of
     int_search_vec_pair. A CUDA tensor goes through the kernel
-    (csrc/int_search.cu, counted in int_search_pair_windows.launches); a
-    CPU tensor through the plain version."""
+    (csrc/int_search.cu, counted in int_search_pair_windows.launches,
+    uint16 windows also in .launches_u16); a CPU tensor through the
+    plain version."""
     b16 = by16 * bx16
     _check_search("int_search_pair_windows", w16, cur_plane, 16,
                   [(penx8, 4 * b16), (peny8, 4 * b16), (penx16, b16),
@@ -410,7 +417,7 @@ def int_search_pair_windows(w16, cur_plane, penx8, peny8, penx16, peny16,
               for _ in range(2))
     c16, i16 = (torch.empty(b16, dtype=torch.int32, device=dev)
                 for _ in range(2))
-    err = _search_fns()["pair"](
+    err = _search_fns()["pair", w16.dtype](
         w16.data_ptr(), b16, w16.shape[1], lead, side, cur_plane.data_ptr(),
         cur_plane.shape[1], bx16, penx8.data_ptr(), peny8.data_ptr(),
         penx16.data_ptr(), peny16.data_ptr(), c8.data_ptr(), i8.data_ptr(),
@@ -420,10 +427,12 @@ def int_search_pair_windows(w16, cur_plane, penx8, peny8, penx16, peny16,
         raise RuntimeError(f"int_search_pair_windows launch failed: CUDA "
                            f"error {err}")
     int_search_pair_windows.launches += 1
+    int_search_pair_windows.launches_u16 += w16.dtype == torch.uint16
     return (c8, i8), (c16, i16)
 
 
 int_search_pair_windows.launches = 0
+int_search_pair_windows.launches_u16 = 0
 
 
 def int_search_windows_plain(w, cur_plane, penx, peny, n: int, side: int,
@@ -437,12 +446,14 @@ def int_search_windows_plain(w, cur_plane, penx, peny, n: int, side: int,
 def int_search_windows(w, cur_plane, penx, peny, n: int, side: int,
                        lead: int = 4):
     """Integer full search of the 32-blocks (n must be 32) over their
-    (B, S, S) uint8 windows w, raster order over the (H, W) int32
-    current plane (8-bit samples); penx/peny (side, B) int32 penalties.
+    (B, S, S) uint8 or uint16 windows w, raster order over the (H, W)
+    int32 current plane (samples of the windows' bit depth); penx/peny
+    (side, B) int32 penalties.
     Returns (best_cost (B,), best_i (B,)), int32: the results of
     int_search_vec. A CUDA tensor goes through the kernel
-    (csrc/int_search.cu, counted in int_search_windows.launches); a CPU
-    tensor through the plain version."""
+    (csrc/int_search.cu, counted in int_search_windows.launches, uint16
+    windows also in .launches_u16); a CPU tensor through the plain
+    version."""
     if n != 32:
         raise ValueError(f"int_search_windows searches 32-blocks, got {n}")
     b = w.shape[0] if w.dim() == 3 else -1
@@ -458,7 +469,7 @@ def int_search_windows(w, cur_plane, penx, peny, n: int, side: int,
     dev = w.device
     cost, idx = (torch.empty(b, dtype=torch.int32, device=dev)
                  for _ in range(2))
-    err = _search_fns()["single"](
+    err = _search_fns()["single", w.dtype](
         w.data_ptr(), b, w.shape[1], lead, side, cur_plane.data_ptr(), ww,
         ww // n, penx.data_ptr(), peny.data_ptr(), cost.data_ptr(),
         idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
@@ -466,10 +477,12 @@ def int_search_windows(w, cur_plane, penx, peny, n: int, side: int,
         raise RuntimeError(f"int_search_windows launch failed: CUDA error "
                            f"{err}")
     int_search_windows.launches += 1
+    int_search_windows.launches_u16 += w.dtype == torch.uint16
     return cost, idx
 
 
 int_search_windows.launches = 0
+int_search_windows.launches_u16 = 0
 
 
 @lru_cache(maxsize=None)
@@ -477,12 +490,16 @@ def _search_fns():
     from ..kernels import load
     lib = load("int_search")
     p, i = ctypes.c_void_p, ctypes.c_int
-    pair, single = lib.int_search_pair_u8, lib.int_search_u8
-    pair.argtypes = [p, i, i, i, i, p, i, i, p, p, p, p, p, p, p, p, p]
-    single.argtypes = [p, i, i, i, i, p, i, i, p, p, p, p, p]
-    for fn in (pair, single):
-        fn.restype = ctypes.c_int
-    return {"pair": pair, "single": single}
+    fns = {}
+    for dt, sfx in ((torch.uint8, "u8"), (torch.uint16, "u16")):
+        pair = getattr(lib, f"int_search_pair_{sfx}")
+        single = getattr(lib, f"int_search_{sfx}")
+        pair.argtypes = [p, i, i, i, i, p, i, i, p, p, p, p, p, p, p, p, p]
+        single.argtypes = [p, i, i, i, i, p, i, i, p, p, p, p, p]
+        for fn in (pair, single):
+            fn.restype = ctypes.c_int
+        fns["pair", dt], fns["single", dt] = pair, single
+    return fns
 
 
 def select_window_lanes(win_t: torch.Tensor, offy: torch.Tensor,
@@ -492,6 +509,10 @@ def select_window_lanes(win_t: torch.Tensor, offy: torch.Tensor,
     offsets offy/offx (B,) in [0, nshift). The reference selects with
     one-hot masked sums (gathers serialize on a TPU); a GPU indexes
     directly, with the same result."""
+    if win_t.dtype == torch.uint16:
+        # advanced indexing lacks uint16 kernels: 10-bit samples are the
+        # same numbers as int16
+        win_t = win_t.view(torch.int16)
     s, _, b = win_t.shape
     dev = win_t.device
     ar = torch.arange(out, device=dev)
@@ -549,7 +570,8 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
     n=16 search and the four n=8 searches inside it) and one window per
     32x32 block.
 
-    cur: (H, W) int32 (multiples of 32); ref_pad: uint8 reference
+    cur: (H, W) int32 (multiples of 32); ref_pad: uint8 (uint16 at 10
+    bits) reference
     edge-padded by `pad` >= 2*radius + 8; cmv16: (H//16, W//16, 2)
     full-pel coarse seeds; wvec: (6,) int32 explicit weights (weightp).
 
