@@ -793,13 +793,20 @@ def _search_case(rng, case, n, nb, side, bits=8):
     """Windows, current plane and penalties of one search row at `bits`
     bits a sample (uint8 windows, uint16 at 10): random samples;
     near-flat samples in {0, 1} with penalties in {0, 1, 2}, where many
-    candidates tie at different indices; or flat samples and penalties,
-    where every candidate ties."""
+    candidates tie at different indices; flat samples and penalties,
+    where every candidate ties; or the extremes, current 2^bits - 1
+    against windows of 0 (curmax) and current 0 against windows of
+    2^bits - 1 (cur0), flat penalties: every candidate ties at the
+    largest SAD, which at 10 bits fills each packed 16-bit half of the
+    uint16 searches' sums."""
     s = n + side - 1 + 2 * LEAD
     pen_bs = (4 * nb, 4 * nb, nb, nb) if n == 16 else (nb, nb)
-    if case == "flat":
-        win = np.full((nb, s, s), 3, np.int16)
-        cur = np.full(SCAN, 200, np.int32)
+    top = (1 << bits) - 1
+    if case in ("flat", "curmax", "cur0"):
+        wv, cv = {"flat": (3, 200), "curmax": (0, top),
+                  "cur0": (top, 0)}[case]
+        win = np.full((nb, s, s), wv, np.int16)
+        cur = np.full(SCAN, cv, np.int32)
         pens = [np.full((side, b), 5, np.int32) for b in pen_bs]
     else:
         hi, phi = (1 << bits, 400) if case == "random" else (2, 3)
@@ -812,15 +819,19 @@ def _search_case(rng, case, n, nb, side, bits=8):
     return [win_t] + [torch.from_numpy(a).cuda() for a in (cur, *pens)]
 
 
-def phase_search(bits=8, sad_lanes_per_sm=INT32_LANES_PER_SM):
+def phase_search(bits=8, sad_lanes_per_sm=INT32_LANES_PER_SM,
+                 samples_per_step=4, sad="vabsdiff4"):
     """Search kernel vs plain at the main-path shapes; returns per path
     ("bench", "medium" and "slow": side 21, "fast": side 11; at 10 bits
     "main10": side 21, the uint16 instances) the per-frame aggregate
     numbers, and each instance's ("by"), for the kernels line. The
     medium and slow paths' rows are the bench path's random case again,
-    each timed in its own turn. sad_lanes_per_sm: the SAD instruction's
-    rate (VABSDIFF4 at 8 bits, 4 samples an instruction; the scalar
-    half-word vabsdiff at 10, one sample), lanes per SM clock."""
+    each timed in its own turn; at 10 bits the curmax and cur0 extremes
+    run untimed at every side. sad_lanes_per_sm: the rate of the SAD's
+    instruction sequence (`sad`: VABSDIFF4 at 8 bits, 4 samples an
+    instruction; at 10 the probe's sad16_max_imad, two VIMNMX and two
+    IMAD for 4 samples), steps per SM clock, each step samples_per_step
+    samples."""
     from x265_tpu_torch.ops.me_win import int_search_pair_windows, \
         int_search_pair_windows_plain, int_search_windows, \
         int_search_windows_plain
@@ -828,7 +839,6 @@ def phase_search(bits=8, sad_lanes_per_sm=INT32_LANES_PER_SM):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_hz = sm_clock_hz()
     lane_ops_per_s = sms * sad_lanes_per_sm * clock_hz
-    px_per_sad = 4 if bits == 8 else 1
     bps = 1 if bits == 8 else 2                # bytes a sample
     # (row, case, side, the path whose time it is, or None: untimed)
     if bits == 8:
@@ -845,7 +855,10 @@ def phase_search(bits=8, sad_lanes_per_sm=INT32_LANES_PER_SM):
                 ("flat", "flat", SIDE, None),
                 ("random_me_range_5", "random", FAST_SIDE, None),
                 ("near_flat_me_range_5", "near_flat", FAST_SIDE, None),
-                *((row, "random", side, None) for row, side in OTHER_SIDES))
+                *((row, "random", side, None) for row, side in OTHER_SIDES),
+                *((f"{case}_side_{side}", case, side, None)
+                  for case in ("curmax", "cur0")
+                  for side in (5, FAST_SIDE, 15, SIDE, 25)))
     aggs = {path: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                    "ops_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0,
                    "by": {}}
@@ -876,9 +889,9 @@ def phase_search(bits=8, sad_lanes_per_sm=INT32_LANES_PER_SM):
             if err != 0:
                 raise AssertionError(f"search kernel != plain at {name} "
                                      f"{row}: max abs err {err}")
-            if case == "flat" and any(int(i.abs().max()) != 0
-                                      for i in got[1::2]):
-                raise AssertionError(f"flat {name}: a tie did not pick "
+            if case in ("flat", "curmax", "cur0") and any(
+                    int(i.abs().max()) != 0 for i in got[1::2]):
+                raise AssertionError(f"{row} {name}: a tie did not pick "
                                      f"index 0")
             for agg in aggs.values():
                 agg["max_abs_err"] = max(agg["max_abs_err"], err)
@@ -890,16 +903,17 @@ def phase_search(bits=8, sad_lanes_per_sm=INT32_LANES_PER_SM):
                 # bytes: windows, current plane (its low byte, or its
                 # low 16 bits at 10 bits: all the search compares),
                 # penalties read once, results written once;
-                # operations: one SAD-and-accumulate per px_per_sad
-                # pixels per candidate (VABSDIFF4 at 8 bits, the
-                # half-word vabsdiff at 10), at the SAD's measured rate
+                # operations: one step of the SAD's sequence per
+                # samples_per_step pixels per candidate (VABSDIFF4 at 8
+                # bits; at 10 two VIMNMX and two IMAD), at its measured
+                # rate
                 win_t, cur_t, *pens_t = args
                 nbytes = (win_t.numel() + cur_t.numel()) * bps + \
                     sum(a.numel() * a.element_size() for a in pens_t) + \
                     sum(g.numel() * 4 for g in got)
                 px_cand = nb * n * n * side * side
                 bytes_ms = nbytes / BYTES_PER_S * 1e3
-                ops_ms = px_cand / px_per_sad / lane_ops_per_s * 1e3
+                ops_ms = px_cand / samples_per_step / lane_ops_per_s * 1e3
                 per_px_ms = 2 * px_cand / lane_ops_per_s * 1e3
                 rec.update({
                     "kernel_ms": t["kernel"][0],
@@ -911,7 +925,9 @@ def phase_search(bits=8, sad_lanes_per_sm=INT32_LANES_PER_SM):
                     "per_pixel_int32_ms": per_px_ms,
                     "bound_ms": max(bytes_ms, ops_ms),
                     "bound_share": max(bytes_ms, ops_ms) / t["kernel"][0],
-                    "sm_clock_hz": clock_hz,
+                    "sad": sad, "sad_steps_per_clock_per_sm":
+                    sad_lanes_per_sm, "sad_samples_per_step":
+                    samples_per_step, "sm_clock_hz": clock_hz,
                     "launches_per_p_frame": 1})
                 agg["ms"] += t["kernel"][0]
                 agg["plain_ms"] += t["plain"][0]
@@ -935,70 +951,95 @@ def phase_search(bits=8, sad_lanes_per_sm=INT32_LANES_PER_SM):
 
 def print_build_report(kernels) -> None:
     """ptxas's figures for every kernel instance, then the SASS of each
-    search instance: at 1 byte a sample its VABSDIFF4 against one per
-    current-row word of its R candidates (per lane: n rows x 4 words x
-    R), and the unrolled walk over the window rows (from the first SAD
-    to the last) counted per window row: SADs, funnel shifts, shared
-    loads and all instructions; at 2 bytes a sample (whose half-word
-    SAD ptxas expands into integer instructions: no VABSDIFF) its
-    instruction count and most frequent opcodes."""
+    search instance: its SAD instructions (VABSDIFF4 at 1 byte a sample;
+    VIMNMX, the packed 16-bit max, at 2) against the current words of
+    its R candidates (per lane: n rows x 4 words x R), and the unrolled
+    walk over the window rows (from the first SAD to the last) counted
+    per window row: SADs, IMADs, IADD3s, funnel shifts, shared loads
+    and all instructions."""
     for name in kernels.sources():
         for row in kernels.resource_usage(name):
             print(json.dumps({"ptxas": name, **row}), flush=True)
-    for fn, ops in kernels.sass_opcodes("int_search").items():
+    for fn, ops in kernels.sass_opcodes("int_search", full=True).items():
         m = re.search(r"int_search_kernel<(\d+), (true|false), (\d+), "
                       r"(\d+)>", fn)
         if not m:
             continue
         n, r, kb = int(m.group(1)), int(m.group(3)), int(m.group(4))
-        cnt = Counter(ops)
+        # the SAD's opcode with its modifiers: VIMNMX without .U16x2 is
+        # a scalar min or max of the index and fold arithmetic
+        sad = "VABSDIFF4" if kb == 1 else "VIMNMX.U16x2"
+        base = [op.split(".")[0] for op in ops]
+        cnt = Counter(base)
         name = f"int_search_kernel<{n}, {m.group(2)}, {r}, {kb}>"
-        if kb == 2:
-            print(json.dumps({"sass": name, "instructions": len(ops),
-                              "current_words": n * 4 * r,
-                              "top": cnt.most_common(10)}), flush=True)
-            continue
-        sad = "VABSDIFF4"
-        sads = [i for i, op in enumerate(ops) if op == sad]
+        sads = [i for i, op in enumerate(ops)
+                if op == sad or op.startswith(sad + ".")]
         if not sads:
             raise AssertionError(f"{fn}: no {sad} in its SASS")
-        walk = Counter(ops[sads[0]:sads[-1] + 1])
+        walk = Counter(base[sads[0]:sads[-1] + 1])
         rows = r + n - 1
         words = n * 4 * r
         print(json.dumps({
-            "sass": name, "sad": sad, "sads": cnt[sad],
+            "sass": name, "sad": sad, "sads": len(sads),
             "current_words": words,
-            "sads_per_word": cnt[sad] / words,
+            "sads_per_word": len(sads) / words,
             "instructions": len(ops), "walk_rows": rows,
             "walk_per_row": {"instructions": sum(walk.values()) / rows,
-                             "sads": walk[sad] / rows,
+                             "sads": len(sads) / rows,
+                             "imad": walk["IMAD"] / rows,
+                             "iadd3": walk["IADD3"] / rows,
                              "shf": walk["SHF"] / rows,
                              "lds": walk["LDS"] / rows},
-            "walk_top": walk.most_common(10)}), flush=True)
+            "walk_top": walk.most_common(10),
+            "top": cnt.most_common(10)}), flush=True)
 
 
 RATE_OPS = ("vabsdiff4", "shf", "imad", "vabsdiff4_and_shf", "ffma",
-            "vabsdiff2", "vabsdiff_h")
+            "vabsdiff2", "vabsdiff_h", "vimnmx_u16x2", "iadd3",
+            "sad16_maxmin", "sad16_max", "vimnmx_and_imad",
+            "sad16_max_imad")
 # the SASS each chain must be made of; None: no instruction of its own
-# (vabsdiff2 is expanded by ptxas: its top opcodes are printed)
+# (vabsdiff2 and the half-word vabsdiff are expanded by ptxas: their
+# top opcodes are printed)
 RATE_SASS = {"vabsdiff4": ("VABSDIFF4",), "shf": ("SHF",),
              "imad": ("IMAD",), "vabsdiff4_and_shf": ("VABSDIFF4", "SHF"),
-             "ffma": ("FFMA",), "vabsdiff2": None, "vabsdiff_h": None}
+             "ffma": ("FFMA",), "vabsdiff2": None, "vabsdiff_h": None,
+             "vimnmx_u16x2": ("VIMNMX",), "iadd3": ("IADD3",),
+             "sad16_maxmin": ("VIMNMX", "IADD3"),
+             "sad16_max": ("VIMNMX", "IADD3"),
+             "vimnmx_and_imad": ("VIMNMX", "IMAD"),
+             "sad16_max_imad": ("VIMNMX", "IMAD")}
+# instructions of one step of a chain where it is more than one: a max
+# and a min; a max and an IMAD; the exact 16-bit SADs' max, min and
+# IADD3 for a word, two max and an IADD3 for two words, and two max and
+# two IMAD for two words
+RATE_INSTRS = {"vimnmx_u16x2": 2, "sad16_maxmin": 3, "sad16_max": 3,
+               "vimnmx_and_imad": 2, "sad16_max_imad": 4}
+# samples of one step of each SAD chain: VABSDIFF4 4 bytes; vabsdiff2
+# a word of 2 half-words, the half-word vabsdiff 1; sad16_maxmin a
+# word, sad16_max and sad16_max_imad two
+RATE_SAMPLES = {"vabsdiff4": 4, "vabsdiff2": 2, "vabsdiff_h": 1,
+                "sad16_maxmin": 2, "sad16_max": 4, "sad16_max_imad": 4}
 
 
 def phase_int_rates() -> dict:
     """Issue rate of the search's instructions on one SM, from the probe
     csrc/probes/int_rates.cu: one grid of 256-thread blocks at full
-    occupancy, each thread 8 dependency chains of one instruction
-    (VABSDIFF4 with its accumulator, SHF, IMAD, VABSDIFF4 and SHF
-    interleaved, FFMA, whose published rate is 128 lanes per clock, as
-    the yardstick, and the two 16-bit SADs of the Main10 search: the
-    packed vabsdiff2 and the scalar half-word vabsdiff). Each block
-    reads the SM clock count (clock64) and the global nanosecond timer
-    at its start and end; the rate is the grid's lanes over its whole
-    span, in the SM clocks the blocks counted. Checks in the SASS that
-    each chain is its one instruction, where it has one. Returns the
-    lanes per clock per SM of each."""
+    occupancy, each thread 8 dependency chains of one step (VABSDIFF4
+    with its accumulator, SHF, IMAD, VABSDIFF4 and SHF interleaved,
+    FFMA, whose published rate is 128 lanes per clock, as the
+    yardstick, the two 16-bit SADs that ptxas expands, the packed
+    vabsdiff2 and the scalar half-word vabsdiff, and the pieces and
+    whole steps of the exact packed 16-bit SADs: max.u16x2 and
+    min.u16x2, IADD3, max - min, 2 max - w - c with its sums by IADD3,
+    max.u16x2 beside IMAD (two pipes), and 2 max - w - c with its sums
+    by IMAD, the uint16 searches' sequence; RATE_INSTRS and RATE_SAMPLES
+    give a step's instructions and samples). Each block reads the SM
+    clock count (clock64) and the global nanosecond timer at its start
+    and end; the rate is the grid's steps (lanes) over its whole span,
+    in the SM clocks the blocks counted. Checks in the SASS that each
+    chain is made of its instructions, where it has them. Returns the
+    steps per clock per SM of each."""
     import ctypes
     from x265_tpu_torch import kernels
     iters, chains, threads = 4096, 8, 256
@@ -1031,6 +1072,11 @@ def phase_int_rates() -> dict:
         rates[name] = lanes
         print(json.dumps({"int_rate": name, "blocks_per_sm": per_sm,
                           "lanes_per_clock_per_sm": lanes,
+                          "instructions_per_step":
+                          RATE_INSTRS.get(name, 1),
+                          "samples_per_clock_per_sm":
+                          lanes * RATE_SAMPLES[name]
+                          if name in RATE_SAMPLES else None,
                           "warp_instructions_per_clock_per_sm": lanes / 32,
                           "sm_clock_hz": clock_hz, "span_s": span_s,
                           "sass": want or dict(chain.most_common(6))}),
@@ -2035,7 +2081,9 @@ def main() -> int:
     # the uint16 gather at its shapes, the uint16 searches
     gather["cli_main10"] = phase_gather(MEDIUM_SHAPES, (torch.uint16,),
                                         agg_dtype=torch.uint16)
-    search.update(phase_search(10, rates["vabsdiff_h"]))
+    search.update(phase_search(10, rates["sad16_max_imad"],
+                               RATE_SAMPLES["sad16_max_imad"],
+                               "sad16_max_imad"))
     search["cli_main10"] = search.pop("main10")
     log("kernel == plain at every main-path shape")
     done("kernels")

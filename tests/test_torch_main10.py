@@ -59,6 +59,36 @@ from x265_tpu_torch.ops import me_win as port_me
 
 torch.set_num_threads(2)
 
+
+def _tensor_indexed(idx) -> bool:
+    """Whether an index holds a tensor, a list or an array: advanced
+    indexing, which runs an index kernel."""
+    parts = idx if isinstance(idx, tuple) else (idx,)
+    return any(isinstance(p, (torch.Tensor, list, np.ndarray))
+               for p in parts)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def refuse_uint16_tensor_reads():
+    """Runs every test of the module as the card would in one respect:
+    torch's CUDA build has no advanced-indexing kernels for uint16 while
+    its CPU build has them, so a tensor-indexed read of a uint16 tensor
+    raises here as it would there (the port indexes uint16 planes
+    through their int16 view). Module scope, so it also covers the
+    module fixtures' encodes."""
+    real = torch.Tensor.__getitem__
+
+    def getitem(self, idx):
+        if self.dtype == torch.uint16 and _tensor_indexed(idx):
+            raise RuntimeError("tensor-indexed read of a uint16 tensor: "
+                               "torch's CUDA build has no kernel for it")
+        return real(self, idx)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.Tensor, "__getitem__", getitem)
+        yield
+
+
 MASTER = ("G(13250,34500)B(7500,3000)R(34000,16000)WP(15635,16450)"
           "L(10000000,1)")
 

@@ -78,15 +78,37 @@
 // Main10 (the _u16 entry points) runs the same design on 2-byte
 // samples: a lane still takes 4 words (16 bytes) of a row, now 8
 // samples, so a 16-block row takes 2 lanes and a 32-block row 4; a
-// row's realignment is a funnel shift of 0 or 16 bits; the SAD is one
-// scalar vabsdiff with its accumulator per sample, on each half-word
-// of a word. sm_90 has no 16-bit SAD instruction: ptxas expands the
-// half-word vabsdiff into about 3 integer instructions (20 lanes a
-// clock per SM against VABSDIFF4's 62) and the packed vabsdiff2 into
-// about 9 (7 lanes); csrc/probes/int_rates.cu measures both. In the
-// pair search each of the 2 lanes holds one column of 8-blocks (top
-// and bottom sums), and the region sum adds the two lanes with one
-// shuffle after the walk. A 32-block SAD at 10 bits stays under 2^20,
+// row's realignment is a funnel shift of 0 or 16 bits. sm_90 has no
+// 16-bit SAD instruction: ptxas expands the half-word vabsdiff, which
+// these instances used before, into about 3 integer instructions per
+// sample, and the packed vabsdiff2 into about 9 per word. That form is
+// gone. The SAD is now |w - c| = 2 max(w, c) - w - c, summed in packed
+// form: a word's two samples are its halves, and a candidate's sum over
+// a lane's words holds the even samples' sum in its low half and the
+// odd samples' in its high half. Per word and candidate that is one
+// max.u16x2 (VIMNMX, on the integer pipe) and one IMAD that adds twice
+// the max (on the FMA pipe, so the two overlap); sum w over a
+// candidate's rows is the difference of two prefix sums of the lane's
+// window rows (2 IADD3 a row, shared by the row's R candidates), and
+// sum c per lane and half is staged with the current block. All of it
+// is uint32 arithmetic mod 2^32, so the packed result V = lo + 2^16 hi
+// is exact whenever each half's true SAD lo, hi is below 2^16, and the
+// SAD is lo + hi. That needs every sample, window and current, below
+// 2^10 (10-bit planes; the weight-compensated current clamps to them): a
+// pair lane's half holds 4 samples of a row over an 8-block's 8 rows,
+// 32 x 1023 = 32,736 at most; a 32-block lane's half would hold 128
+// samples over 32 rows, up to 130,944, so the 32-block's sums are
+// unpacked every 16 rows (64 x 1023 = 65,472). Both searches keep their
+// sums per half: the pair its lane's top and bottom 8-block (it holds
+// one column of 8-blocks; the region adds the two lanes with one
+// shuffle after the walk), the 32-block its top and bottom 16 rows. The
+// sequence's rate, measured by csrc/probes/int_rates.cu (sad16_max_imad:
+// two VIMNMX and two IMAD per 4 samples; 96.2 samples a clock per SM on
+// an H100, against 85.6 with one IADD3 for the sums and 20.3 for the
+// half-word vabsdiff), is the uint16 searches' bound. Per window row and
+// lane the walk adds the prefix's 2 IADD3 to the 5 loads, 4 funnel
+// shifts and pointer step, beside 8 instructions (4 VIMNMX, 4 IMAD) for
+// each of its R candidates. A 32-block SAD at 10 bits stays under 2^20,
 // so the (1 << 30, 0) start key and the 64-bit keys hold as at 8 bits.
 //
 // Interface: plain C entry points bound through ctypes. A call launches
@@ -94,6 +116,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -102,16 +125,18 @@ namespace {
 constexpr int kSmemDefault = 48 * 1024;  // above this, opt in per kernel
 constexpr int kSmemMax = 227 * 1024;
 
-// Threads of a block and blocks per SM: the pair search one warp a
-// block, 20 blocks (at most 102 registers a thread), the 32-block
-// search two warps, 8 blocks (128 registers). Small blocks wait less
-// at their barriers; both timed best among 32-256 threads and 8-20
-// blocks on an H100.
-__host__ __device__ constexpr int threads_of(bool pair) {
-  return pair ? 32 : 64;
+// Threads of a block and blocks per SM (kb bytes a sample): the uint8
+// pair search one warp a block, 20 blocks (at most 102 registers a
+// thread); the uint16 pair search two warps, 10 blocks (102 registers:
+// its shared memory holds 17 one-warp blocks at most, and its walk
+// needs as many registers); the 32-block search two warps, 8 blocks
+// (128 registers). Small blocks wait less at their barriers; each timed
+// best among 32-256 threads and 4-20 blocks on an H100.
+__host__ __device__ constexpr int threads_of(bool pair, int kb) {
+  return pair && kb == 1 ? 32 : 64;
 }
-__host__ __device__ constexpr int min_blocks_of(bool pair) {
-  return pair ? 20 : 8;
+__host__ __device__ constexpr int min_blocks_of(bool pair, int kb) {
+  return pair ? (kb == 1 ? 20 : 10) : 8;
 }
 
 // One output of a search: (side, nb) penalties, (nb,) results.
@@ -178,17 +203,23 @@ __device__ __forceinline__ uint32_t sad4(uint32_t a, uint32_t b,
   return d;
 }
 
-// d = |a - b| summed over the 2 half-words, plus c: two scalar
-// vabsdiff with half-word selectors and the accumulator (the faster of
-// the two expansions ptxas gives a 16-bit SAD on sm_90; the packed
-// vabsdiff2, __vsadu2, takes about 3 times as long).
-__device__ __forceinline__ uint32_t sad2(uint32_t a, uint32_t b,
-                                         uint32_t c) {
-  uint32_t t, d;
-  asm("vabsdiff.u32.u32.u32.add %0, %1.h0, %2.h0, %3;"
-      : "=r"(t) : "r"(a), "r"(b), "r"(c));
-  asm("vabsdiff.u32.u32.u32.add %0, %1.h1, %2.h1, %3;"
-      : "=r"(d) : "r"(a), "r"(b), "r"(t));
+// d = max(a, b) in each 16-bit half (max.u16x2: one VIMNMX on sm_90).
+__device__ __forceinline__ uint32_t max2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// The sum of the two 16-bit halves of a packed sum.
+__device__ __forceinline__ uint32_t unpack2(uint32_t v) {
+  return (v & 0xffffu) + (v >> 16);
+}
+
+// d = a * b + c: one IMAD, which runs on the FMA pipe.
+__device__ __forceinline__ uint32_t mad(uint32_t a, uint32_t b,
+                                       uint32_t c) {
+  uint32_t d;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
   return d;
 }
 
@@ -200,7 +231,7 @@ __device__ __forceinline__ void stage(const Geo& g, int gi, uint8_t* buf,
                                       const int32_t* __restrict__ cur,
                                       const Out& a, const Out& b, int tid) {
   constexpr int kOut = kPair ? 5 : 1;
-  constexpr int kThreads = threads_of(kPair);
+  constexpr int kThreads = threads_of(kPair, kB);
   const int u0 = gi * g.units;
   const int un = min(g.units, g.nb - u0);
   const int ss = g.s * g.s * kB;
@@ -272,20 +303,23 @@ __device__ __forceinline__ void stage(const Geo& g, int gi, uint8_t* buf,
 // ascending index, so a strict < keeps the first of equal costs. With
 // 2-byte samples the pair's lane l holds the 8-blocks of column l
 // only; the other outputs keep INT_MAX, which the reduction over the
-// unit's lanes passes over.
+// unit's lanes passes over. sslot: with 2-byte samples, the packed sums
+// of the unit's current words per half and lane (stage_sums).
 template <int N, bool kPair, int R, int kB>
 __device__ __forceinline__ void search_item(
     int item, const Geo& g, const uint8_t* wslot, const uint32_t* cslot,
-    const int32_t* spx, const int32_t* spy, int (&bc)[kPair ? 5 : 1],
-    int (&bi)[kPair ? 5 : 1]) {
+    const uint32_t* sslot, const int32_t* spx, const int32_t* spy,
+    int (&bc)[kPair ? 5 : 1], int (&bi)[kPair ? 5 : 1]) {
   constexpr int kOut = kPair ? 5 : 1;
   constexpr int kL = N * kB / 16;       // lanes per candidate
   constexpr int kCW = N * kB / 4;       // words in a current row
   static_assert(kCW == 4 * kL, "a lane takes 4 words of a row");
   static_assert(!kPair || kL <= 2, "a pair lane holds whole 8-blocks");
   // partial sums per candidate: the pair's four quadrants (one lane)
-  // or its lane's top and bottom 8-block (two lanes); else one
-  constexpr int kQ = kPair ? (kL == 1 ? 4 : 2) : 1;
+  // or its lane's top and bottom 8-block (two lanes); the 32-block's
+  // top and bottom 16 rows at 2 bytes a sample (a packed sum is
+  // unpacked every N / 2 rows); else one
+  constexpr int kQ = kPair ? (kL == 1 ? 4 : 2) : kB;
   const int l = item & (kL - 1);
   const int rest = item / kL;
   const int grp = rest / g.side;
@@ -318,6 +352,18 @@ __device__ __forceinline__ void search_item(
   for (int k = 0; k < R; ++k)
 #pragma unroll
     for (int q = 0; q < kQ; ++q) acc[k][q] = 0;
+  // 2 bytes a sample: pre[r], the packed sum of the lane's window words
+  // in the walk's rows before r; csum[q], of its current words in half q;
+  // two, 2 where ptxas cannot see it (lead >= 0), so that acc + 2 max
+  // stays an IMAD and does not become an IADD3 on the integer pipe
+  const uint32_t two = static_cast<uint32_t>(g.lead >> 31) + 2;
+  uint32_t pre[kB == 2 ? R + N : 1];
+  uint32_t csum[2];
+  if constexpr (kB == 2) {
+    pre[0] = 0;
+    csum[0] = sslot[l];
+    csum[1] = sslot[kL + l];
+  }
 
 #pragma unroll
   for (int r = 0; r < R + N - 1; ++r) {
@@ -337,52 +383,68 @@ __device__ __forceinline__ void search_item(
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       ref[j] = __funnelshift_r(w[j], w[j + 1], sh[r & 3]);
+    if constexpr (kB == 2)
+      pre[r + 1] = pre[r] + ref[0] + ref[1] + ref[2] + ref[3];
 #pragma unroll
     for (int k = 0; k < R; ++k) {
       const int i = r - k;                // current row of candidate k
       if (i < 0 || i >= N) continue;
+      if constexpr (kB == 1) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int q = !kPair ? 0
-                      : kQ == 4 ? 2 * (i >= N / 2) + (j >= 2)
-                                : (i >= N / 2);
-        if constexpr (kB == 1)
+        for (int j = 0; j < 4; ++j) {
+          const int q = kQ == 4 ? 2 * (i >= N / 2) + (j >= 2) : 0;
           acc[k][q] = sad4(ref[j], c[i % R][j], acc[k][q]);
-        else
-          acc[k][q] = sad2(ref[j], c[i % R][j], acc[k][q]);
-      }
-      if constexpr (kPair && kQ == 4) {
-        if (i == N / 2 - 1) {             // top 8-blocks complete
-          fold(0, k, acc[k][0]);
-          fold(1, k, acc[k][1]);
-          acc[k][0] += acc[k][1];         // the top half of the region
-        } else if (i == N - 1) {          // bottom ones and the region
-          fold(2, k, acc[k][2]);
-          fold(3, k, acc[k][3]);
-          fold(4, k, acc[k][0] + acc[k][2] + acc[k][3]);
         }
+        if constexpr (kPair) {
+          if (i == N / 2 - 1) {           // top 8-blocks complete
+            fold(0, k, acc[k][0]);
+            fold(1, k, acc[k][1]);
+            acc[k][0] += acc[k][1];       // the top half of the region
+          } else if (i == N - 1) {        // bottom ones and the region
+            fold(2, k, acc[k][2]);
+            fold(3, k, acc[k][3]);
+            fold(4, k, acc[k][0] + acc[k][2] + acc[k][3]);
+          }
+        }
+      } else {
+        // sum 2 max(w, c) of both halves of each word into half q's
+        // sum; when the half is complete, make it the packed SAD
+        // 2 sum max - sum w - sum c (see the note at the top)
+        const int q = i >= N / 2;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[k][q] = mad(max2(ref[j], c[i % R][j]), two, acc[k][q]);
+        if (i == N / 2 - 1 || i == N - 1)
+          acc[k][q] -= pre[r + 1] - pre[r + 1 - N / 2] + csum[q];
       }
     }
   }
   // the lanes of one candidate are kL consecutive lanes of a warp
   const unsigned lane_mask = ((1u << kL) - 1) << (threadIdx.x & (32 - kL));
   if constexpr (kPair && kQ == 2) {
+    // lane l's 8-blocks are outputs l (top) and 2 + l (bottom): their
+    // penalties are read at l, their minima kept in outputs 0 and 2,
+    // then moved, so no lane branches per candidate
+    auto fold_at = [&](int o, int p, int k, uint32_t sad) {
+      const int cost = static_cast<int>(sad) + px[p] + py[k * kOut + p];
+      if (cost < bc[o]) bc[o] = cost, bk[o] = k;
+    };
 #pragma unroll
     for (int k = 0; k < R; ++k) {
-      const uint32_t top = acc[k][0], bot = acc[k][1];
-      if (l == 0) {
-        fold(0, k, top);
-        fold(2, k, bot);
-      } else {
-        fold(1, k, top);
-        fold(3, k, bot);
-      }
+      const uint32_t top = unpack2(acc[k][0]), bot = unpack2(acc[k][1]);
+      fold_at(0, l, k, top);
+      fold_at(2, 2 + l, k, bot);
       fold(4, k, top + bot + __shfl_xor_sync(lane_mask, top + bot, 1));
+    }
+    if (l == 1) {
+      bc[1] = bc[0], bk[1] = bk[0], bc[0] = INT_MAX;
+      bc[3] = bc[2], bk[3] = bk[2], bc[2] = INT_MAX;
     }
   } else if constexpr (!kPair) {
 #pragma unroll
     for (int k = 0; k < R; ++k) {
       uint32_t sad = acc[k][0];
+      if constexpr (kB == 2) sad = unpack2(sad) + unpack2(acc[k][1]);
 #pragma unroll
       for (int m = 1; m < kL; m *= 2)
         sad += __shfl_xor_sync(lane_mask, sad, m);
@@ -396,15 +458,20 @@ __device__ __forceinline__ void search_item(
 // N: current block size (16 for the pair); kPair: also the four
 // 8-blocks; R: dy candidates per thread; kB: bytes a sample (1 or 2).
 template <int N, bool kPair, int R, int kB>
-__global__ void __launch_bounds__(threads_of(kPair), min_blocks_of(kPair))
+__global__ void __launch_bounds__(threads_of(kPair, kB),
+                                  min_blocks_of(kPair, kB))
 int_search_kernel(const uint8_t* __restrict__ win,
                   const int32_t* __restrict__ cur, Geo g, Out a, Out b) {
   constexpr int kOut = kPair ? 5 : 1;   // pair: 8-blocks 0-3, region 4
-  constexpr int kThreads = threads_of(kPair);
+  constexpr int kThreads = threads_of(kPair, kB);
   constexpr int kCurWords = N * N * kB / 4;
   extern __shared__ __align__(16) uint8_t smem[];
   uint32_t* scur = reinterpret_cast<uint32_t*>(smem + g.off_cur);
   long long* skey = reinterpret_cast<long long*>(smem + g.off_key);
+  // 2 bytes a sample: 2 kL packed current sums per slot, after the keys
+  uint32_t* ssum = reinterpret_cast<uint32_t*>(smem + g.off_key +
+                                               8 * kOut * g.units);
+  constexpr int kL = N * kB / 16;
   const int buf_bytes = g.units * g.slot_bytes;
 
   const int tid = threadIdx.x;
@@ -450,6 +517,26 @@ int_search_kernel(const uint8_t* __restrict__ win,
         }
       }
     }
+    if constexpr (kB == 2) {
+      // per slot, half h and lane: the packed sum (mod 2^32) of the
+      // current words the lane compares in rows [h N / 2, (h + 1) N / 2)
+      for (int t = tid; t < un * 2 * kL; t += kThreads) {
+        const int sl = t / (2 * kL);
+        const int h = t / kL % 2;
+        const int4* src = reinterpret_cast<const int4*>(
+                              buf + sl * g.slot_bytes + g.win_bytes) +
+                          h * (N / 2) * (N / 4) + 2 * (t % kL);
+        uint32_t lo = 0, hi = 0;
+#pragma unroll 4
+        for (int i = 0; i < N / 2; ++i) {
+          const int4 v0 = src[i * (N / 4)], v1 = src[i * (N / 4) + 1];
+          lo += (v0.x & 0xffff) + (v0.z & 0xffff) + (v1.x & 0xffff) +
+                (v1.z & 0xffff);
+          hi += v0.y + v0.w + v1.y + v1.w;
+        }
+        ssum[t] = lo + (hi << 16);
+      }
+    }
     for (int t = tid; t < un * kOut; t += kThreads)
       skey[t] = key_of(1 << 30, 0);
     __syncthreads();
@@ -466,7 +553,8 @@ int_search_kernel(const uint8_t* __restrict__ win,
         const int32_t* spx =
             reinterpret_cast<const int32_t*>(sb + g.win_bytes + 4 * N * N);
         search_item<N, kPair, R, kB>(item, g, sb, scur + slot * kCurWords,
-                                     spx, spx + kOut * g.side, bc, bi);
+                                     ssum + slot * 2 * kL, spx,
+                                     spx + kOut * g.side, bc, bi);
       }
       // min over the unit's lanes of this warp (least cost, then least
       // index among the lanes that have it), then over its warps
@@ -505,7 +593,7 @@ int run(const void* win, int nb, int s, int lead, int side, const void* cur,
         int cur_w, int bx, Out a, Out b, cudaStream_t stream) {
   constexpr int kOut = kPair ? 5 : 1;
   constexpr int kL = N * kB / 16;
-  constexpr int kThreads = threads_of(kPair);
+  constexpr int kThreads = threads_of(kPair, kB);
   const int groups_dy = (side + R - 1) / R;
   Geo g{};
   g.s = s;
@@ -518,9 +606,10 @@ int run(const void* win, int nb, int s, int lead, int side, const void* cur,
   // units per group: the fewest that leave under 5% of the passes'
   // threads idle, within the shared memory of one of min_blocks_of
   // blocks on an SM
-  const int per_unit = 2 * g.slot_bytes + N * N * kB + 8 * kOut;
+  const int sums = kB == 2 ? 8 * kL : 0;  // the packed current sums
+  const int per_unit = 2 * g.slot_bytes + N * N * kB + 8 * kOut + sums;
   const int max_units =
-      max(1, min(nb, kSmemMax / min_blocks_of(kPair) / per_unit));
+      max(1, min(nb, kSmemMax / min_blocks_of(kPair, kB) / per_unit));
   int units = 1;
   long long best_idle = LLONG_MAX, best_work = 1;
   for (int u = 1; u <= max_units; ++u) {
@@ -535,7 +624,7 @@ int run(const void* win, int nb, int s, int lead, int side, const void* cur,
   g.ngroups = (nb + units - 1) / units;
   g.off_cur = 2 * units * g.slot_bytes;
   g.off_key = g.off_cur + round16(units * N * N * kB);
-  const int smem = g.off_key + 8 * kOut * units;
+  const int smem = g.off_key + (8 * kOut + sums) * units;
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   g.cur_w = cur_w;
   g.bx = bx;
@@ -564,28 +653,57 @@ int run(const void* win, int nb, int s, int lead, int side, const void* cur,
 }
 
 // The R of a side, among the compiled values no larger than the side
-// (1 always is): the least integer instructions per dx, counting per dy
-// group R candidates of n^2 kB / 4 SADs and their folds (kPair: 5 keys
-// and the halves' sums, about 21 instructions at 1 byte a sample and 14
-// at 2; else about 6) and R + n - 1 window rows of 5 (4 funnel shifts
-// and a pointer step) per lane.
-int pick_r(const int (&rs)[4], int n, bool pair, int kb, int side) {
+// (1 always is): the fewest integer instructions per dx, in halves of
+// one. Per dy group: R candidates of n^2 kB / 4 current words each and
+// their folds, and R + n - 1 window rows per lane. At 1 byte a sample a
+// word is one VABSDIFF4, a window row 5 (4 funnel shifts and a pointer
+// step), the folds of a candidate about 21 (the pair: 5 keys and the
+// halves' sums) or 6. At 2 bytes a word is 2 (a VIMNMX and an IMAD), a
+// window row 12 (5 loads, 4 funnel shifts, a pointer step and 2 IADD3
+// of its prefix sum), the folds per candidate and lane about 26 (the
+// pair: 2 halves made SADs and unpacked, 3 keys and a shuffle) or 18.
+int pick_r(const int* rs, int nr, int n, bool pair, int kb, int side) {
   const int lanes = n * kb / 16;
-  const long long fold = pair ? (kb == 1 ? 21 : 14) : 6;
+  const long long word = kb == 1 ? 2 : 4;
+  const long long fold = kb == 1 ? 2 * (pair ? 21 : 6)
+                                 : 2 * lanes * (pair ? 26 : 18);
+  const long long row = kb == 1 ? 2 * 5 : 2 * 12;
   int best = 1;
   long long best_cost = LLONG_MAX;
-  for (int r : rs) {
+  for (int m = 0; m < nr; ++m) {
+    const int r = rs[m];
     if (r > side) continue;
     const long long groups = (side + r - 1) / r;
     const long long cost =
-        groups * (r * (n * n * kb / 4 + fold) + (r + n - 1) * lanes * 5);
+        groups * (r * (n * n * kb / 4 * word + fold) +
+                  (r + n - 1) * lanes * row);
     if (cost < best_cost) best = r, best_cost = cost;
   }
   return best;
 }
 
-constexpr int kPairR[4] = {1, 5, 6, 7};
-constexpr int kSingleR[4] = {1, 5, 7, 13};
+// The compiled R of each search (and sample width; 1 must be one).
+template <int... Rs>
+struct RList {};
+using PairR = RList<1, 5, 6, 7>;
+using SingleR1 = RList<1, 5, 7, 13>;
+using SingleR2 = RList<1, 5, 6, 7>;
+
+// run<> at the R that pick_r gives among Rs.
+template <int N, bool kPair, int kB, int... Rs>
+int run_picked(RList<Rs...>, const void* win, int nb, int s, int lead,
+               int side, const void* cur, int cur_w, int bx, Out a, Out b,
+               cudaStream_t st) {
+  constexpr int rs[] = {Rs...};
+  const int r = pick_r(rs, sizeof...(Rs), N, kPair, kB, side);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  (void)((r == Rs && ((err = run<N, kPair, Rs, kB>(win, nb, s, lead, side,
+                                                   cur, cur_w, bx, a, b,
+                                                   st)),
+                      true)) ||
+         ...);
+  return err;
+}
 
 Out out_of(const void* penx, const void* peny, int nb, void* cost,
            void* idx) {
@@ -604,20 +722,8 @@ int search_pair(const void* win, int nb16, int s, int lead, int side,
   const Out a = out_of(penx8, peny8, 4 * nb16, cost8, idx8);
   const Out b = out_of(penx16, peny16, nb16, cost16, idx16);
   auto* st = static_cast<cudaStream_t>(stream);
-  switch (pick_r(kPairR, 16, true, kB, side)) {
-    case 1:
-      return run<16, true, 1, kB>(win, nb16, s, lead, side, cur, cur_w,
-                                  bx16, a, b, st);
-    case 5:
-      return run<16, true, 5, kB>(win, nb16, s, lead, side, cur, cur_w,
-                                  bx16, a, b, st);
-    case 6:
-      return run<16, true, 6, kB>(win, nb16, s, lead, side, cur, cur_w,
-                                  bx16, a, b, st);
-    default:
-      return run<16, true, 7, kB>(win, nb16, s, lead, side, cur, cur_w,
-                                  bx16, a, b, st);
-  }
+  return run_picked<16, true, kB>(PairR{}, win, nb16, s, lead, side, cur,
+                                  cur_w, bx16, a, b, st);
 }
 
 template <int kB>
@@ -627,20 +733,9 @@ int search_single(const void* win, int nb, int s, int lead, int side,
   if (nb <= 0) return static_cast<int>(cudaGetLastError());
   const Out a = out_of(penx, peny, nb, cost, idx);
   auto* st = static_cast<cudaStream_t>(stream);
-  switch (pick_r(kSingleR, 32, false, kB, side)) {
-    case 1:
-      return run<32, false, 1, kB>(win, nb, s, lead, side, cur, cur_w, bx,
-                                   a, a, st);
-    case 5:
-      return run<32, false, 5, kB>(win, nb, s, lead, side, cur, cur_w, bx,
-                                   a, a, st);
-    case 7:
-      return run<32, false, 7, kB>(win, nb, s, lead, side, cur, cur_w, bx,
-                                   a, a, st);
-    default:
-      return run<32, false, 13, kB>(win, nb, s, lead, side, cur, cur_w, bx,
-                                    a, a, st);
-  }
+  using Rs = std::conditional_t<kB == 1, SingleR1, SingleR2>;
+  return run_picked<32, false, kB>(Rs{}, win, nb, s, lead, side, cur,
+                                   cur_w, bx, a, a, st);
 }
 
 }  // namespace

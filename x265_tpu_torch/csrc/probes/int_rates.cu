@@ -43,6 +43,39 @@ __device__ __forceinline__ uint32_t sadh(uint32_t a, uint32_t b,
   return d;
 }
 
+// packed 16-bit maximum and minimum (PTX 8.0, sm_90: one VIMNMX each)
+__device__ __forceinline__ uint32_t vmax2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm volatile("max.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t vmin2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm volatile("min.u16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// a + b + c: two PTX adds that ptxas fuses into one IADD3
+__device__ __forceinline__ uint32_t add3(uint32_t a, uint32_t b,
+                                         uint32_t c) {
+  uint32_t d;
+  asm volatile("{\n\t.reg .u32 t;\n\tadd.u32 t, %1, %2;\n\t"
+               "add.u32 %0, t, %3;\n\t}"
+               : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// a - b + c in one IADD3 (its operands may be negated)
+__device__ __forceinline__ uint32_t sub_add(uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  uint32_t d;
+  asm volatile("{\n\t.reg .u32 t;\n\tsub.u32 t, %1, %2;\n\t"
+               "add.u32 %0, t, %3;\n\t}"
+               : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
 __device__ __forceinline__ uint32_t shf(uint32_t a, uint32_t b) {
   uint32_t d;
   asm volatile("shf.r.wrap.b32 %0, %1, %2, %1;" : "=r"(d) : "r"(a), "r"(b));
@@ -52,6 +85,15 @@ __device__ __forceinline__ uint32_t shf(uint32_t a, uint32_t b) {
 __device__ __forceinline__ uint32_t imad(uint32_t a, uint32_t b) {
   uint32_t d;
   asm volatile("mad.lo.u32 %0, %1, %2, %1;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// a * b + c (IMAD: the FMA pipe's integer multiply-add)
+__device__ __forceinline__ uint32_t mad(uint32_t a, uint32_t b,
+                                        uint32_t c) {
+  uint32_t d;
+  asm volatile("mad.lo.u32 %0, %1, %2, %3;"
+               : "=r"(d) : "r"(a), "r"(b), "r"(c));
   return d;
 }
 
@@ -72,8 +114,18 @@ __device__ __forceinline__ long long global_ns() {
 
 // op 0: VABSDIFF4 (accumulating); 1: SHF; 2: IMAD; 3: half the chains
 // VABSDIFF4 and half SHF; 4: FFMA; 5: vabsdiff2 (accumulating); 6:
-// scalar vabsdiff of half-words (accumulating). Each block writes its
-// SM clocks and its start and end on the global nanosecond timer.
+// scalar vabsdiff of half-words (accumulating); 7: max.u16x2 then
+// min.u16x2 (two VIMNMX a step: a chain of maxima alone, ptxas fuses
+// two steps into one 3-input VIMNMX3); 8: IADD3; and two exact SADs of
+// two 16-bit samples a word whose halves' sums fit 16 bits: 9, |w - c|
+// = max - min, one step a word (max, min and acc + max - min: 2
+// samples); 10, |w - c| = 2 max(w, c) - w - c with the sums of w and c
+// taken apart, one step two words (two max and acc + max0 + max1: 4
+// samples); 11: max.u16x2 then IMAD (whether the two pipes overlap);
+// 12: the sequence of 10 with IMADs for the sums, acc + 2 max0 + 2 max1
+// as two IMADs by a 2 the compiler cannot see (4 samples). Each block
+// writes its SM clocks and its start and end on the global nanosecond
+// timer.
 template <int kOp>
 __global__ void __launch_bounds__(kThreads)
 chains(uint32_t y, int iters, uint32_t* sink, long long* cycles,
@@ -81,6 +133,7 @@ chains(uint32_t y, int iters, uint32_t* sink, long long* cycles,
   uint32_t acc[kChains];
 #pragma unroll
   for (int j = 0; j < kChains; ++j) acc[j] = threadIdx.x * 7 + j;
+  const uint32_t two = (y >> 31) + 2;   // y < 2^31: 2, unknown to ptxas
   __syncthreads();
   const long long g0 = global_ns();
   const long long t0 = clock64();
@@ -97,8 +150,22 @@ chains(uint32_t y, int iters, uint32_t* sink, long long* cycles,
         acc[j] = ffma(acc[j], y + j);
       else if (kOp == 5)
         acc[j] = sad2(acc[j], y, acc[j]);
-      else
+      else if (kOp == 6)
         acc[j] = sadh(acc[j], y, acc[j]);
+      else if (kOp == 7)
+        acc[j] = vmin2(vmax2(acc[j], y + j), y - j);
+      else if (kOp == 8)
+        acc[j] = add3(acc[j], acc[j ^ 1], y);
+      else if (kOp == 9)
+        acc[j] = sub_add(vmax2(acc[j], y + j), vmin2(acc[j], y + j),
+                         acc[j]);
+      else if (kOp == 10)
+        acc[j] = add3(acc[j], vmax2(acc[j], y + j), vmax2(acc[j], y - j));
+      else if (kOp == 11)
+        acc[j] = imad(vmax2(acc[j], y + j), y + j);
+      else
+        acc[j] = mad(vmax2(acc[j], y + j), two,
+                     mad(vmax2(acc[j], y - j), two, acc[j]));
     }
   }
   __syncthreads();
@@ -133,8 +200,14 @@ extern "C" int int_rates_blocks_per_sm(int op) {
                        reinterpret_cast<const void*>(chains<3>),
                        reinterpret_cast<const void*>(chains<4>),
                        reinterpret_cast<const void*>(chains<5>),
-                       reinterpret_cast<const void*>(chains<6>)};
-  if (op < 0 || op > 6) return -1;
+                       reinterpret_cast<const void*>(chains<6>),
+                       reinterpret_cast<const void*>(chains<7>),
+                       reinterpret_cast<const void*>(chains<8>),
+                       reinterpret_cast<const void*>(chains<9>),
+                       reinterpret_cast<const void*>(chains<10>),
+                       reinterpret_cast<const void*>(chains<11>),
+                       reinterpret_cast<const void*>(chains<12>)};
+  if (op < 0 || op > 12) return -1;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fns[op], kThreads, 0);
   return n;
 }
@@ -154,6 +227,12 @@ extern "C" int int_rates_run(int op, int iters, int grid, void* sink,
     case 3: return launch<3>(iters, grid, s, c, t);
     case 4: return launch<4>(iters, grid, s, c, t);
     case 5: return launch<5>(iters, grid, s, c, t);
-    default: return launch<6>(iters, grid, s, c, t);
+    case 6: return launch<6>(iters, grid, s, c, t);
+    case 7: return launch<7>(iters, grid, s, c, t);
+    case 8: return launch<8>(iters, grid, s, c, t);
+    case 9: return launch<9>(iters, grid, s, c, t);
+    case 10: return launch<10>(iters, grid, s, c, t);
+    case 11: return launch<11>(iters, grid, s, c, t);
+    default: return launch<12>(iters, grid, s, c, t);
   }
 }

@@ -137,10 +137,11 @@ def resource_usage(name: str) -> list[dict]:
     return rows
 
 
-def sass_opcodes(name: str) -> dict[str, list[str]]:
+def sass_opcodes(name: str, full: bool = False) -> dict[str, list[str]]:
     """The opcodes, in order and without modifiers (VABSDIFF4.U8.ACC is
-    VABSDIFF4), of each kernel in the built csrc/<name>.cu, from
-    cuobjdump -sass; raises if the tool is missing."""
+    VABSDIFF4; with full=True, with them), of each kernel in the built
+    csrc/<name>.cu, from cuobjdump -sass; raises if the tool is
+    missing."""
     out = subprocess.run([_cuda_tool("cuobjdump"), "-sass",
                           str(_so_path(name))], capture_output=True,
                          text=True, timeout=120, check=True).stdout
@@ -152,7 +153,7 @@ def sass_opcodes(name: str) -> dict[str, list[str]]:
             ops.append([])
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                     r"([A-Z][A-Z0-9_]*)", line)
+                     r"([A-Z][A-Z0-9_]*)((?:\.\w+)*)", line)
         if m and ops:
-            ops[-1].append(m.group(1))
+            ops[-1].append(m.group(1) + (m.group(2) if full else ""))
     return dict(zip(_demangle(funcs), ops))

@@ -391,7 +391,8 @@ def int_search_pair_windows(w16, cur_plane, penx8, peny8, penx16, peny16,
     8-blocks over the (B16, S, S) uint8 (8-bit) or uint16 (10-bit)
     region windows w16 (raster order of a by16 x bx16 grid, gathered at
     seed - (radius + lead)), against the (16 by16, 16 bx16) int32
-    current plane (samples of the windows' bit depth).
+    current plane (samples of the windows' bit depth: the uint16 kernel's
+    packed sums are exact for samples below 2^10).
     penx8/peny8 (side, 4 B16) and penx16/peny16 (side, B16) int32
     penalties. Returns ((cost8, i8), (cost16, i16)), int32, 8-blocks in
     the raster order of the 8-grid, i = dy*side + dx: the results of
@@ -447,7 +448,8 @@ def int_search_windows(w, cur_plane, penx, peny, n: int, side: int,
                        lead: int = 4):
     """Integer full search of the 32-blocks (n must be 32) over their
     (B, S, S) uint8 or uint16 windows w, raster order over the (H, W)
-    int32 current plane (samples of the windows' bit depth); penx/peny
+    int32 current plane (samples of the windows' bit depth: below 2^10
+    for uint16 windows, as the kernel's packed sums need); penx/peny
     (side, B) int32 penalties.
     Returns (best_cost (B,), best_i (B,)), int32: the results of
     int_search_vec. A CUDA tensor goes through the kernel
