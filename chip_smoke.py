@@ -131,7 +131,19 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      checked against the 10-bit recon, the uint16 gather 4 times and
      the uint16 searches 2 times per P frame and no uint8 instance;
      the CPU's 1 I + 1 P under the same flags against the pass's;
-  13. the kernels line (one JSON object, one entry per kernel instance:
+  13. decode: the port's validation decoder (x265_tpu_torch.decoder,
+     numpy on the host) on the card's own streams, in DECODE_JOBS
+     spawned processes: the bench configuration's 1080p I + 1 P leg
+     against the card's recon, started as soon as phase 3 wrote it
+     (while its later legs run, before any timed pass), then after
+     every timed phase the Main10 CLI pass's 1080p I frame and up to
+     DECODE_MAIN10_P P frames after it (phase 12) against its recon
+     and its MD5 SEIs (fewer P frames when the run is late, never none
+     of the I frame), and every small-size card stream the legs write
+     (IPPP, SAO, CTU 64, placebo, NR, B, dQP, lossless, CTU 16, WPP,
+     10-bit) against the card's recon; one line per stream with its
+     frames, bytes and decode seconds per frame;
+  14. the kernels line (one JSON object, one entry per kernel instance:
      the gather's uint8 and uint16, the pair and 32-block searches'
      uint8 and uint16; launches summed over the timed passes of the
      paths that run each, and per path; times and bounds per P frame at
@@ -502,24 +514,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def encode_ippp(frames, device, cfg, timing=None, chunk=CHUNK):
+def encode_ippp(frames, device, cfg, timing=None, chunk=CHUNK,
+                need_recon=False):
     """A path through its user entry points, in the configuration cfg:
     I frame at QP-3 on the device recon, then pipelined P chunks.
-    Returns the results; `timing`, when a dict, receives the I frame's
-    and the P frames' wall seconds (the device is synchronized between
-    them)."""
+    Returns the results (with their recon planes on need_recon);
+    `timing`, when a dict, receives the I frame's and the P frames' wall
+    seconds (the device is synchronized between them)."""
     from x265_tpu_torch.enc import IntraEncoder
     enc = IntraEncoder(cfg, device=device)
     t0 = time.perf_counter()
     r0 = enc.encode_frame(*frames[0], qp=cfg.qp - 3, use_device_recon=True,
-                          need_recon=False)
+                          need_recon=need_recon)
     if timing is not None:
         torch.cuda.synchronize()
         timing["i_frame_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     enc.ref = r0.device_ref
     enc.poc = 0
-    rs = enc.encode_pgop_pipelined(frames[1:], chunk=chunk)
+    rs = enc.encode_pgop_pipelined(frames[1:], chunk=chunk,
+                                   need_recon=need_recon)
     if timing is not None:
         torch.cuda.synchronize()
         timing["p_frames_s"] = time.perf_counter() - t0
@@ -1144,7 +1158,8 @@ def phase_card_equals_cpu():
     for tag, frames, make_cfg, chunk in legs:
         h, w = frames[0][0].shape
         t0 = time.perf_counter()
-        gpu = encode_ippp(frames, "cuda", make_cfg(h, w), chunk=chunk)
+        gpu = encode_ippp(frames, "cuda", make_cfg(h, w), chunk=chunk,
+                          need_recon=True)
         t1 = time.perf_counter()
         cpu = encode_ippp(frames, "cpu", make_cfg(h, w), chunk=chunk)
         t2 = time.perf_counter()
@@ -1170,6 +1185,9 @@ def phase_card_equals_cpu():
                 raise AssertionError(f"{tag}: no 64x64 CU")
         print(json.dumps(rec), flush=True)
         out[tag] = gpu
+        bench_leg = tag == f"{CARD_CPU_SIZE[0]}x{CARD_CPU_SIZE[1]} 1I+1P"
+        if h * w <= SMALL_AREA or bench_leg:
+            keep_for_decode(tag, gpu, early=bench_leg)
     return out
 
 
@@ -1192,6 +1210,8 @@ def phase_b_card_equals_cpu():
         if lengths != lengths_cpu or len(gpu) != len(cpu) or any(
                 a.bitstream != b.bitstream for a, b in zip(gpu, cpu)):
             raise AssertionError(f"card != CPU at {tag}")
+        if h * w <= SMALL_AREA:
+            keep_for_decode(tag, gpu)
         rec = {"card_equals_cpu": tag, "frames": len(gpu),
                "minigop_lengths": lengths,
                "bytes": sum(len(r.bitstream) for r in gpu),
@@ -1352,6 +1372,8 @@ def phase_dqp_card_equals_cpu():
         if len(maps_g) != len(maps_c) or any(
                 not np.array_equal(a, b) for a, b in zip(maps_g, maps_c)):
             raise AssertionError(f"card != CPU QP maps at {tag}")
+        if "1080" not in tag:
+            keep_for_decode(tag, gpu)
         rec = {"card_equals_cpu": tag, "frames": len(gpu),
                "bytes": sum(len(r.bitstream) for r in gpu),
                "card_s": t1 - t0, "cpu_s": t2 - t1}
@@ -1649,7 +1671,7 @@ CLI_LEGS = (
       [*ZL_FAST, "--analysis-load", "{d}/analysis.npz"]]),
     ("fast/zerolatency wpp=1 8 frames", lambda: small_clip(8),
      [["--preset", "fast", "--tune", "zerolatency", "--param", "wpp=1",
-       "--hash", "1"]]),
+       "--hash", "1", "--recon", "{d}/rec.y4m"]]),
     ("AbrEncoder 96x64 ABR 200 + 48x32 CQP, 6 frames", lambda: small_clip(6),
      None))
 
@@ -1751,9 +1773,11 @@ class EncoderTimer:
 def phase_cli_card_equals_cpu(workdir):
     """Every 64x96 CLI leg on the card and on the CPU: the same output
     bytes, csv rows (but wall_s) and stats files."""
+    import pathlib
     for tag, _, _ in CLI_LEGS:
         t0 = time.perf_counter()
-        card = cli_leg_outputs(tag, "cuda", f"{workdir}/{len(tag)}card")
+        card_dir = pathlib.Path(f"{workdir}/{len(tag)}card")
+        card = cli_leg_outputs(tag, "cuda", card_dir)
         t1 = time.perf_counter()
         cpu = cli_leg_outputs(tag, "cpu", f"{workdir}/{len(tag)}cpu")
         t2 = time.perf_counter()
@@ -1762,6 +1786,9 @@ def phase_cli_card_equals_cpu(workdir):
                          if card.get(k) != cpu.get(k))
             raise AssertionError(f"CLI card != CPU at {tag}: {bad}")
         streams = [v for k, v in card.items() if isinstance(v, bytes)]
+        if (card_dir / "rec.y4m").exists():
+            keep_cli_for_decode(f"CLI {tag}", card["out0.hevc"],
+                                card_dir / "rec.y4m")
         print(json.dumps({"cli_card_equals_cpu": tag, "files": sorted(card),
                           "bytes": sum(len(v) for v in streams),
                           "card_s": t1 - t0, "cpu_s": t2 - t1}), flush=True)
@@ -1975,7 +2002,7 @@ def phase_main10_card_equals_cpu(workdir):
         ("slow/zerolatency no-sao 72x128 1I+3P chunk 3",
          synth10_clip(4, 72, 128),
          lambda fr, d: encode_ippp(fr, d, main10_config(
-             72, 128, "slow", "zerolatency"), chunk=3)),
+             72, 128, "slow", "zerolatency"), chunk=3, need_recon=True)),
         ("fast no-sao 64x96 encode_hier_gop 1I+4", synth10_clip(5, 64, 96),
          lambda fr, d: enc(main10_config(64, 96, "fast"),
                            d).encode_hier_gop(fr)),
@@ -1993,6 +2020,7 @@ def phase_main10_card_equals_cpu(workdir):
         if len(gpu) != len(cpu) or any(
                 a.bitstream != b.bitstream for a, b in zip(gpu, cpu)):
             raise AssertionError(f"Main10 card != CPU at {tag}")
+        keep_for_decode(f"Main10 {tag}", gpu)
         print(json.dumps({"main10_card_equals_cpu": tag,
                           "frame_types": "".join(r.ftype for r in gpu),
                           "bytes": sum(len(r.bitstream) for r in gpu),
@@ -2015,6 +2043,8 @@ def phase_main10_card_equals_cpu(workdir):
     if outs["cuda"] != outs["cpu"]:
         raise AssertionError("Main10 CLI leg: card != CPU")
     n_hash = verify_hash_seis(outs["cuda"][0], f"{workdir}/m10_cuda.y4m", 10)
+    keep_cli_for_decode("Main10 CLI 420p10 64x96 --hash 1 HDR10",
+                        outs["cuda"][0], f"{workdir}/m10_cuda.y4m")
     print(json.dumps({"main10_card_equals_cpu": "CLI 420p10 y4m 64x96 "
                       "ultrafast/zerolatency --qp 30 --hash 1 HDR10, 3 "
                       "frames", "bytes": len(outs["cuda"][0]),
@@ -2037,7 +2067,192 @@ def phase_main10(workdir):
     del frames
     run = cli_pass(src, f"{workdir}/cli_main10", CLI_MAIN10, 10,
                    path="cli_main10")
+    out = f"{workdir}/cli_main10"
+    keep_cli_for_decode("cli_main10 1080p", open(out + ".hevc", "rb").read(),
+                        out + ".y4m", frames=1 + DECODE_MAIN10_P)
     return run["launches"]
+
+
+# --- decode: the port's validation decoder on the card's own streams -------
+
+SMALL_AREA = 72 * 128        # legs up to this size are decoded whole
+DECODE_MAIN10_P = 1          # P frames of the Main10 1080p pass decoded
+DECODE_LATE_S = (950,)       # elapsed s from which one fewer each
+DECODE_JOBS = 4              # decoding processes
+SLICE_NALS = (0, 1, 19, 20, 21)   # TRAIL_N, TRAIL_R, IDR_W_RADL, IDR_N_LP,
+#                                   CRA: one picture each
+
+
+class Decodes:
+    """The card streams kept for the decode phase, each (tag, stream,
+    [(poc, y, cb, cr)] in decode order, frame types), and the phase's
+    processes: one spawned pool of DECODE_JOBS, started by the first
+    stream decoded early (the bench leg's 1080p I + P, while the later
+    card == CPU legs run, before any timed pass: its minute and a half
+    would otherwise end the run)."""
+
+    def __init__(self) -> None:
+        self.kept = []
+        self.early = []          # AsyncResults of the early streams
+        self.pool = None
+
+    def keep(self, item, early=False) -> None:
+        if not early:
+            self.kept.append(item)
+            return
+        if self.pool is None:
+            import multiprocessing
+            self.pool = multiprocessing.get_context("spawn").Pool(
+                DECODE_JOBS)
+        self.early.append(self.pool.apply_async(decode_job, ([item],)))
+
+
+DECODES = Decodes()
+
+
+def _recon_planes(r):
+    rec = r.recon if r.recon is not None else r.device_ref.to_recon()
+    return rec.y, rec.cb, rec.cr
+
+
+def keep_for_decode(tag, results, early=False) -> None:
+    """Keep a leg's card stream (results in decode order) and its recon
+    for phase_decode; early: start decoding it now."""
+    DECODES.keep((tag, b"".join(r.bitstream for r in results),
+                  [(r.poc, *_recon_planes(r)) for r in results],
+                  "".join(r.ftype for r in results)), early)
+
+
+def first_pictures(stream: bytes, n: int) -> bytes:
+    """The Annex-B units of a stream up to its n-th picture and that
+    picture's suffix units."""
+    from x265_tpu_torch.bitstream.nal import nal_header, split_annexb
+    out, seen = [], 0
+    for t, _, raw in split_annexb(stream):
+        if int(t) in SLICE_NALS:
+            seen += 1
+            if seen > n:
+                break
+        out.append(b"\0\0\0\1" + nal_header(t) + raw)
+    return b"".join(out)
+
+
+def keep_cli_for_decode(tag, stream: bytes, recon_y4m, frames=None) -> None:
+    """Keep an IPPP CLI stream (decode order is display order, POC the
+    frame index) with its --recon y4m, cut to its first `frames`
+    pictures when given (phase_decode may cut it further)."""
+    from x265_tpu_torch.io import Y4MReader
+    recon = []
+    for k, planes in enumerate(Y4MReader(str(recon_y4m))):
+        if frames is not None and k >= frames:
+            break
+        recon.append((k, *planes))
+    if frames is not None:
+        stream = first_pictures(stream, frames)
+    DECODES.keep((tag, stream, recon, "I" + "P" * (len(recon) - 1)))
+
+
+def decode_job(items) -> list:
+    """Decode each kept (tag, stream, recon, types) with
+    x265_tpu_torch.decoder in this process (it verifies every picture
+    hash SEI as it goes), each picture's slice timed, and hold every
+    decoded frame, in decode order, to the card's recon: POC and
+    planes. Raises on a mismatch. Returns one record per stream."""
+    from x265_tpu_torch.bitstream.nal import split_annexb
+    from x265_tpu_torch.decoder import decoder as dec
+    records = []
+    for tag, stream, recon, types in items:
+        secs = []
+        real = dec._decode_slice
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            f = real(*a, **k)
+            secs.append(time.perf_counter() - t)
+            return f
+
+        dec._decode_slice = timed
+        try:
+            t0 = time.perf_counter()
+            frames = dec.decode_annexb(stream)
+            wall = time.perf_counter() - t0
+        finally:
+            dec._decode_slice = real
+        if len(frames) != len(recon):
+            raise AssertionError(f"decode {tag}: {len(frames)} frames for "
+                                 f"{len(recon)} recon pictures")
+        for i, (f, (poc, y, cb, cr)) in enumerate(zip(frames, recon)):
+            if f.poc != poc:
+                raise AssertionError(f"decode {tag}: frame {i} has POC "
+                                     f"{f.poc}, the card's {poc}")
+            for k, want in zip(("y", "cb", "cr"), (y, cb, cr)):
+                got = getattr(f, k)
+                if got.shape != want.shape or not np.array_equal(got, want):
+                    raise AssertionError(f"decode {tag}: frame {i} {k} "
+                                         f"differs from the card's recon")
+        units = split_annexb(stream)
+        sps = dec.parse_sps(next(rb for t, rb, _ in units if int(t) == 33))
+        rec = {"decode": tag, "frames": len(frames), "frame_types": types,
+               "bytes": len(stream), "size": list(frames[0].y.shape),
+               "bit_depth": sps.bit_depth, "decode_s": wall,
+               "decode_s_per_frame": wall / len(frames), "slice_s": secs,
+               "equals_recon": True,
+               "hash_seis_verified": sum(int(t) == 40 for t, _, _ in units)}
+        for t in set(types):
+            rec[f"{t}_frame_s"] = float(np.mean(
+                [s for s, ft in zip(secs, types) if ft == t]))
+        records.append(rec)
+    return records
+
+
+def phase_decode(elapsed_s: float) -> list:
+    """Every kept card stream through the port's validation decoder
+    (decode_job) in the Decodes pool, started when the bench leg's
+    1080p I + P went to it early: now the Main10 1080p pass's I frame
+    and its P frames (DECODE_MAIN10_P of them, one fewer from each
+    DECODE_LATE_S mark the run has passed at this phase's start) in one
+    process, the small streams spread over the others. One line per
+    stream, then this phase's wall seconds and the cut. Returns the
+    records."""
+    import multiprocessing
+    late = sum(elapsed_s > s for s in DECODE_LATE_S)
+    n_p = max(DECODE_MAIN10_P - late, 0)
+    big, small = [], []
+    for tag, stream, recon, types in DECODES.kept:
+        if tag == "cli_main10 1080p":
+            stream = first_pictures(stream, 1 + n_p)
+            recon, types = recon[:1 + n_p], types[:1 + n_p]
+        item = (tag, stream, recon, types)
+        (big if recon[0][1].size > SMALL_AREA else small).append(item)
+    if len(big) != 1 or len(DECODES.early) != 1:
+        raise AssertionError(f"decode: want the bench leg's 1080p stream "
+                             f"early and the Main10 pass's now, kept "
+                             f"{len(DECODES.early)} and "
+                             f"{[b[0] for b in big]}")
+    n_small = max(DECODE_JOBS - len(big), 1)
+    small.sort(key=lambda it: -len(it[1]))
+    jobs = [[b] for b in big] + [small[k::n_small] for k in range(n_small)]
+    t0 = time.perf_counter()
+    pool = DECODES.pool or multiprocessing.get_context("spawn").Pool(
+        DECODE_JOBS)
+    try:
+        pending = [pool.apply_async(decode_job, (job,)) for job in jobs]
+        done = [r.get() for r in DECODES.early + pending]
+    finally:
+        pool.close()
+        pool.join()
+    wall = time.perf_counter() - t0
+    records = [r for job in done for r in job]
+    for r in records:
+        print(json.dumps(r), flush=True)
+    print(json.dumps({"decode_phase_s": wall, "streams": len(records),
+                      "frames": sum(r["frames"] for r in records),
+                      "processes": DECODE_JOBS,
+                      "decoded_early": [r["decode"] for r in done[0]],
+                      "cli_main10_p_frames_decoded": n_p,
+                      "cli_main10_p_frames_cut": DECODE_MAIN10_P - n_p,
+                      "elapsed_at_start_s": elapsed_s}), flush=True)
+    return records
 
 
 def main() -> int:
@@ -2128,6 +2343,9 @@ def main() -> int:
         launches["cli_main10"] = phase_main10(workdir)
     log(f"cli_main10 ran, launches {launches['cli_main10']}")
     done("main10")
+    phase_decode(time.perf_counter() - t0)
+    log("decode: every kept card stream decodes to its recon")
+    done("decode")
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": time.perf_counter() - t0}), flush=True)
 

@@ -160,8 +160,10 @@ def test_package_imports_neither_jax_nor_reference():
     enc/lookahead_gpu.py, the host I path's ops/sao.py and
     ops/intra_np.py, and the CLI's cli.py, abr.py, enc/ratecontrol.py,
     io/, bitstream/sei.py, bitstream/hdr10plus.py, ops/metrics.py,
-    ops/scaler.py and version.py among them), and chip_smoke.py, import
-    without pulling JAX or the reference package into the process."""
+    ops/scaler.py and version.py among them, and the validation decoder
+    decoder/, the Python slice coder's bitstream/syntax.py, cabac.py and
+    common/mv_derive.py), and chip_smoke.py, import without pulling JAX
+    or the reference package into the process."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import x265_tpu_torch\n"
@@ -171,7 +173,9 @@ def test_package_imports_neither_jax_nor_reference():
         "          'enc.lookahead_gpu', 'ops.sao', 'ops.intra_np', 'cli',\n"
         "          'abr', 'enc.ratecontrol', 'io', 'io.y4m', 'io.yuv',\n"
         "          'bitstream.sei', 'bitstream.hdr10plus', 'ops.metrics',\n"
-        "          'ops.scaler', 'version'):\n"
+        "          'ops.scaler', 'version', 'decoder', 'decoder.decoder',\n"
+        "          'bitstream.syntax', 'bitstream.cabac',\n"
+        "          'bitstream.bitreader', 'common.mv_derive'):\n"
         "    assert 'x265_tpu_torch.' + n in names, n\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"

@@ -1,4 +1,5 @@
-"""Raw bit writer + Exp-Golomb (ue/se) syntax writer.
+"""Raw bit writer + Exp-Golomb (ue/se) syntax writer, and the reader
+the validation decoder parses headers with (BitReader).
 
 Behavioral reference: x265 source/common/bitstream.h (Bitstream,
 SyntaxElementWriter) — re-implemented from the H.265 spec definitions
@@ -72,3 +73,62 @@ class BitWriter:
     def get_bytes(self) -> bytes:
         assert self._nbits == 0, "stream not byte-aligned"
         return bytes(self._bytes)
+
+
+class BitReader:
+    """MSB-first bit reader over an RBSP byte string (for the validation
+    decoder). Mirrors BitWriter."""
+
+    __slots__ = ("_data", "_pos")
+
+    def __init__(self, data: bytes) -> None:
+        self._data = data
+        self._pos = 0  # bit position
+
+    def read(self, nbits: int) -> int:
+        v = 0
+        pos = self._pos
+        data = self._data
+        for _ in range(nbits):
+            byte = data[pos >> 3]
+            v = (v << 1) | ((byte >> (7 - (pos & 7))) & 1)
+            pos += 1
+        self._pos = pos
+        return v
+
+    def read_flag(self) -> int:
+        return self.read(1)
+
+    def read_ue(self) -> int:
+        zeros = 0
+        while self.read(1) == 0:
+            zeros += 1
+            assert zeros < 32, "malformed ue(v)"
+        if zeros == 0:
+            return 0
+        return (1 << zeros) - 1 + self.read(zeros)
+
+    def read_se(self) -> int:
+        k = self.read_ue()
+        return (k + 1) >> 1 if (k & 1) else -(k >> 1)
+
+    def byte_align(self) -> None:
+        self._pos = (self._pos + 7) & ~7
+
+    @property
+    def bit_position(self) -> int:
+        return self._pos
+
+    def more_rbsp_data(self) -> bool:
+        """True if there is payload before the rbsp_stop_one_bit."""
+        nbits = len(self._data) * 8
+        if self._pos >= nbits:
+            return False
+        # find last '1' bit in the stream (the stop bit)
+        last = nbits - 1
+        while last >= 0:
+            byte = self._data[last >> 3]
+            if (byte >> (7 - (last & 7))) & 1:
+                break
+            last -= 1
+        return self._pos < last

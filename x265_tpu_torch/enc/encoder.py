@@ -11,8 +11,10 @@ run through enc/bframe_gpu.py (RDOQ too; the I frame, as the
 reference's, uses none of the three), and encode_sequence, whose QP
 maps come from the device lookahead (enc/lookahead_gpu.py, AQ and
 cuTree); every frame entropy-coded by the native CABAC (with WPP one
-substream per CTU row) and packed into Annex-B NAL units, followed by
-its decoded-picture-hash SEI when cfg.hash_sei asks. P chunks take
+substream per CTU row; an I frame by the Python slice coder,
+bitstream/syntax.py SliceSyntaxEncoder, when asked) and packed into
+Annex-B NAL units, followed by its decoded-picture-hash SEI when
+cfg.hash_sei asks. P chunks take
 analysis-reuse seeds (encode_pgop(seeds16=)). Reference pictures
 stay on the device between frames (DeviceRef); the host keeps the DPB
 bookkeeping (references available since the IDR, their POCs, the
@@ -35,7 +37,8 @@ from ..bitstream.headers import (write_pps, write_slice_header, write_sps,
                                  write_vps)
 from ..bitstream.nal import NalUnitType, annexb_stream, emulation_prevention
 from ..bitstream.sei import write_picture_hash_sei
-from ..bitstream.syntax import FrameIntraSyntax, FramePSyntax
+from ..bitstream.syntax import (FrameIntraSyntax, FramePSyntax,
+                                SliceSyntaxEncoder)
 from ..common.params import B_SLICE, EncoderConfig, I_SLICE, P_SLICE
 from ..common.tables import lambda2_from_qp
 from ..device import resolve_device
@@ -225,6 +228,7 @@ class IntraEncoder:
 
     def encode_frame(self, y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
                      *, use_device_recon: bool = True,
+                     use_native_cabac: bool = True,
                      qp: int | None = None, need_recon: bool = True,
                      qp_map: np.ndarray | None = None) -> FrameResult:
         """Encode one IDR frame: device analysis, wavefront recon,
@@ -236,7 +240,9 @@ class IntraEncoder:
         frame with a per-CTU QP map takes it (qp_map (ncty, nctx), or a
         flat one when cfg.dqp_enabled: the PPS then signals
         cu_qp_delta), as do lossless and CTU-16 frames. A map on the
-        lookahead's floor-16 grid is edge-extended to the CTU grid."""
+        lookahead's floor-16 grid is edge-extended to the CTU grid.
+        use_native_cabac=False codes the slice with the Python coder
+        (SliceSyntaxEncoder) instead of the native one: the same bytes."""
         cfg = self.cfg
         t_start = time.perf_counter()
         qp = cfg.qp if qp is None else qp
@@ -257,7 +263,8 @@ class IntraEncoder:
             use_device_recon = False
         w, h = cfg.width_padded, cfg.height_padded
         if not use_device_recon:
-            return self._encode_frame_host(y, cb, cr, qp, qp_map, t_start)
+            return self._encode_frame_host(y, cb, cr, qp, qp_map, t_start,
+                                           use_native_cabac)
         yp = self._upload(pad_plane(np.asarray(y), h, w)[None])
         cbp = self._upload(pad_plane(np.asarray(cb), h // 2, w // 2)[None])
         crp = self._upload(pad_plane(np.asarray(cr), h // 2, w // 2)[None])
@@ -298,10 +305,10 @@ class IntraEncoder:
         recon = device_ref.to_recon() if need_recon or cfg.hash_sei \
             else None
         return self._emit_i_frame(syn, recon, device_ref, sao_params, qp,
-                                  None, t_start)
+                                  None, t_start, use_native_cabac)
 
-    def _encode_frame_host(self, y, cb, cr, qp: int, qp_map, t_start
-                           ) -> FrameResult:
+    def _encode_frame_host(self, y, cb, cr, qp: int, qp_map, t_start,
+                           use_native_cabac: bool = True) -> FrameResult:
         """The host-recon I path: device analysis, then the z-scan
         reconstruction, deblock (each CTU at the QP a decoder infers
         for it) and SAO on the host, in numpy. The recon is uploaded as
@@ -357,7 +364,7 @@ class IntraEncoder:
         device_ref = DeviceRef(*(self._upload(p)
                                  for p in (recon.y, recon.cb, recon.cr)))
         res = self._emit_i_frame(syn, recon, device_ref, sao_params, qp,
-                                 qp_map, t_start)
+                                 qp_map, t_start, use_native_cabac)
         self.host_i_seconds = {"analysis": t_an - t_start,
                                "recon": t_rec - t_an,
                                "filters": t_filt - t_rec,
@@ -365,29 +372,42 @@ class IntraEncoder:
         return res
 
     def _code_slice(self, slice_type: int, syn, qp: int, header: dict,
-                    coder: dict) -> tuple[bytes, bytes]:
-        """Slice header + native CABAC slice data of one picture. Returns
+                    coder: dict, native: bool = True) -> tuple[bytes, bytes]:
+        """Slice header + CABAC slice data of one picture. Returns
         (rbsp, escaped): without WPP the rbsp holds both and escaped is
         empty; with WPP (cfg.wpp) the data is one substream per CTU row,
         already emulation-prevented, after a header that lists their
-        entry points, counted in escaped bytes (clause 7.4.7.1)."""
+        entry points, counted in escaped bytes (clause 7.4.7.1). The
+        native coder takes the coder kwargs; native=False codes the same
+        bytes with the Python SliceSyntaxEncoder, which reads its options
+        from cfg and the syntax record."""
         cfg = self.cfg
-        # the native coder takes the slice_type code (B 0, P 1, I 2)
-        args = (slice_type, syn.depth8, syn.coeff_y, syn.coeff_cb,
-                syn.coeff_cr, cfg.width_padded, cfg.height_padded,
-                cfg.log2_ctu, cfg.log2_min_cu, init_states(slice_type, qp))
+        if native:
+            # the native coder takes the slice_type code (B 0, P 1, I 2)
+            args = (slice_type, syn.depth8, syn.coeff_y, syn.coeff_cb,
+                    syn.coeff_cr, cfg.width_padded, cfg.height_padded,
+                    cfg.log2_ctu, cfg.log2_min_cu,
+                    init_states(slice_type, qp))
+        else:
+            python = SliceSyntaxEncoder(cfg, syn, slice_type, qp,
+                                        sao_params=coder.get("sao_params"),
+                                        qp_map=coder.get("qp_map"))
         if cfg.wpp:
-            escaped = [emulation_prevention(sub) for sub in
-                       encode_slice_wpp_native(*args, **coder)]
+            subs = encode_slice_wpp_native(*args, **coder) if native \
+                else python.encode_slice_data_wpp()
+            escaped = [emulation_prevention(sub) for sub in subs]
             sw = write_slice_header(
                 cfg, slice_type, num_entry_points=len(escaped) - 1,
                 entry_point_offsets=[len(e) for e in escaped[:-1]], **header)
             return sw.get_bytes(), b"".join(escaped)
         sw = write_slice_header(cfg, slice_type, **header)
-        payload, tail_val, tail_bits = encode_slice_native(*args, **coder)
-        sw.write_bytes(payload)
-        if tail_bits:
-            sw.write(tail_val, tail_bits)
+        if native:
+            payload, tail_val, tail_bits = encode_slice_native(*args, **coder)
+            sw.write_bytes(payload)
+            if tail_bits:
+                sw.write(tail_val, tail_bits)
+        else:
+            python.encode_slice_data().finish_into(sw)
         sw.align_one()
         return sw.get_bytes(), b""
 
@@ -404,15 +424,16 @@ class IntraEncoder:
         return nals
 
     def _emit_i_frame(self, syn, recon, device_ref, sao_params, qp: int,
-                      qp_map, t_start) -> FrameResult:
-        """Slice header + native I CABAC + NAL packaging of one IDR."""
+                      qp_map, t_start, native: bool = True) -> FrameResult:
+        """Slice header + I CABAC (native, or the Python coder) + NAL
+        packaging of one IDR."""
         cfg = self.cfg
         rbsp, pre = self._code_slice(
             I_SLICE, syn, qp, dict(idr=True, slice_qp=qp),
             dict(mode8=syn.mode8, sign_hiding=cfg.sign_hiding,
                  cmode8=syn.cmode8, nxn8=syn.nxn8, mode4=syn.mode4,
                  sao_params=sao_params, qp_map=qp_map, slice_qp=qp,
-                 lossless=cfg.lossless))
+                 lossless=cfg.lossless), native)
         nals: list[tuple] = []
         if self.frame_count == 0:
             nals.extend(self.headers())

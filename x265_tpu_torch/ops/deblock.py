@@ -9,7 +9,9 @@ per-CTU QP (dQP) each edge takes the average of its two sides' QPs
 (clause 8.7.2.5.3), from a per-8x8-cell map qp8.
 
 The host-recon I path deblocks on the host, edge by edge: the numpy
-forms at the end (deblock_frame_np), copies of the reference's.
+forms at the end (deblock_frame_np), copies of the reference's, as
+are the boundary-strength maps of P and B frames the validation
+decoder (decoder/) filters with (inter_bs_maps, inter_bs_maps_b).
 """
 
 from __future__ import annotations
@@ -450,3 +452,107 @@ def deblock_frame_np(rec_y: np.ndarray, rec_cb: np.ndarray,
     return (deblock_luma_np(rec_y, vm * 2, hm * 2, qp, bit_depth),
             deblock_chroma_np(rec_cb, vm, hm, qp, bit_depth),
             deblock_chroma_np(rec_cr, vm, hm, qp, bit_depth))
+
+
+def inter_bs_maps(depth8: np.ndarray, mv8: np.ndarray, coeff_y: np.ndarray,
+                  ctu: int, intra8: np.ndarray | None = None,
+                  tusplit8: np.ndarray | None = None
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Boundary-strength maps for a P frame (clause 8.7.2.4): bs = 2
+    when either side is intra, else 1 on TU boundaries where either
+    side's luma TU has coefficients, or on CU (= PU) boundaries where
+    the MV difference reaches a full pel; else 0. With RQT, a split
+    CU's TU edges live at CU/2 granularity (tusplit8 flags). Returns
+    (vbs, hbs) int arrays on the 8x8 grid."""
+    vmask_cu, hmask_cu = edge_masks_np(depth8, ctu)
+    n8y, n8x = depth8.shape
+    h, w = coeff_y.shape
+    nz8 = coeff_y[:n8y * 8, :n8x * 8].reshape(n8y, 8, n8x, 8)
+    nz8 = np.any(nz8 != 0, axis=(1, 3))
+    if intra8 is None:
+        intra8 = np.zeros((n8y, n8x), bool)
+    if tusplit8 is None:
+        tusplit8 = np.zeros((n8y, n8x), np.int32)
+
+    def orpool(a, k):
+        yy = a.shape[0] // k * k
+        xx = a.shape[1] // k * k
+        p = np.zeros(((a.shape[0] + k - 1) // k, (a.shape[1] + k - 1) // k),
+                     bool)
+        q = a[:yy, :xx].reshape(yy // k, k, xx // k, k).any(axis=(1, 3))
+        p[:q.shape[0], :q.shape[1]] = q
+        return np.repeat(np.repeat(p, k, 0), k, 1)[:a.shape[0], :a.shape[1]]
+
+    size = (ctu >> depth8).astype(np.int32)
+    # effective TU size: CU size halved by an RQT split, capped at the
+    # 32 max TB (64 CUs carry four 32 TUs via the inferred split)
+    tsize = np.clip(size >> (tusplit8 > 0), 8, 32)
+    cbf8 = np.where(tsize == 32, orpool(nz8, 4),
+                    np.where(tsize == 16, orpool(nz8, 2), nz8))
+    xs = (np.arange(n8x) * 8)[None, :]
+    ys = (np.arange(n8y) * 8)[:, None]
+    vmask = (xs % tsize) == 0
+    vmask[:, 0] = False
+    hmask = (ys % tsize) == 0
+    hmask[0, :] = False
+
+    def bs_of(maskP, maskQ, mvP, mvQ, iP, iQ, cu_edge):
+        mvd = (np.abs(mvP[..., 0] - mvQ[..., 0]) >= 4) | \
+              (np.abs(mvP[..., 1] - mvQ[..., 1]) >= 4)
+        bs1 = (maskP | maskQ | (mvd & cu_edge)).astype(np.int32)
+        return np.where(iP | iQ, 2, bs1)
+
+    vbs = np.zeros((n8y, n8x), np.int32)
+    vbs[:, 1:] = bs_of(cbf8[:, :-1], cbf8[:, 1:], mv8[:, :-1], mv8[:, 1:],
+                       intra8[:, :-1], intra8[:, 1:], vmask_cu[:, 1:])
+    vbs = vbs * vmask
+    hbs = np.zeros((n8y, n8x), np.int32)
+    hbs[1:, :] = bs_of(cbf8[:-1, :], cbf8[1:, :], mv8[:-1, :], mv8[1:, :],
+                       intra8[:-1, :], intra8[1:, :], hmask_cu[1:, :])
+    hbs = hbs * hmask
+    return vbs, hbs
+
+
+def inter_bs_maps_b(depth8: np.ndarray, mv8: np.ndarray, pf8: np.ndarray,
+                    coeff_y: np.ndarray, ctu: int
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Boundary strength for an all-inter B frame (clause 8.7.2.4):
+    bs = 1 on CU boundaries when either side's luma TU has coefficients,
+    the sides use different prediction flags (different reference sets),
+    or any used list's MV difference reaches a full pel."""
+    vmask, hmask = edge_masks_np(depth8, ctu)
+    n8y, n8x = depth8.shape
+    nz8 = coeff_y[:n8y * 8, :n8x * 8].reshape(n8y, 8, n8x, 8)
+    nz8 = np.any(nz8 != 0, axis=(1, 3))
+
+    def orpool(a, k):
+        yy = a.shape[0] // k * k
+        xx = a.shape[1] // k * k
+        p = np.zeros(((a.shape[0] + k - 1) // k, (a.shape[1] + k - 1) // k),
+                     bool)
+        q = a[:yy, :xx].reshape(yy // k, k, xx // k, k).any(axis=(1, 3))
+        p[:q.shape[0], :q.shape[1]] = q
+        return np.repeat(np.repeat(p, k, 0), k, 1)[:a.shape[0], :a.shape[1]]
+
+    cbf8 = np.where(depth8 == 0, orpool(nz8, 4),
+                    np.where(depth8 == 1, orpool(nz8, 2), nz8))
+
+    def bs_of(cP, cQ, pfP, pfQ, mvP, mvQ):
+        diff_pf = pfP != pfQ
+        mvd = np.zeros(cP.shape, bool)
+        for li in range(2):
+            used = (pfP & (1 << li)) != 0
+            d = (np.abs(mvP[..., li, 0] - mvQ[..., li, 0]) >= 4) | \
+                (np.abs(mvP[..., li, 1] - mvQ[..., li, 1]) >= 4)
+            mvd |= used & d
+        return (cP | cQ | diff_pf | mvd).astype(np.int32)
+
+    vbs = np.zeros((n8y, n8x), np.int32)
+    vbs[:, 1:] = bs_of(cbf8[:, :-1], cbf8[:, 1:], pf8[:, :-1], pf8[:, 1:],
+                       mv8[:, :-1], mv8[:, 1:])
+    vbs = vbs * vmask
+    hbs = np.zeros((n8y, n8x), np.int32)
+    hbs[1:, :] = bs_of(cbf8[:-1, :], cbf8[1:, :], pf8[:-1, :], pf8[1:, :],
+                       mv8[:-1, :], mv8[1:, :])
+    hbs = hbs * hmask
+    return vbs, hbs

@@ -1,7 +1,12 @@
-"""HEVC sub-pel interpolation filter tables (clause 8.5.4.2): 8-tap luma
-quarter-pel, 4-tap chroma eighth-pel. Counterpart of the tables of
-x265_tpu/ops/interp.py; the filtering itself lives where the windowed
-motion search applies it (ops/me_win.py)."""
+"""HEVC sub-pel interpolation (clause 8.5.4.2): 8-tap luma quarter-pel,
+4-tap chroma eighth-pel.
+
+The filter tables, and the numpy oracles of the normative
+fractional-sample process (luma_mc_np / chroma_mc_np and their
+accumulators), copies of those of x265_tpu/ops/interp.py, which the
+validation decoder (decoder/) predicts with. The encoder's filtering
+lives where the windowed motion search applies it (ops/me_win.py).
+"""
 
 from __future__ import annotations
 
@@ -26,3 +31,109 @@ CHROMA_FILTERS = np.array([
     [-2, 16, 54, -4],
     [-2, 10, 58, -2],
 ], dtype=np.int32)
+
+LUMA_TAPS = 8
+CHROMA_TAPS = 4
+
+
+# =============================================================================
+# numpy oracles
+# =============================================================================
+
+def _clip_fetch(plane: np.ndarray, y: int, x: int) -> int:
+    h, w = plane.shape
+    return int(plane[min(max(y, 0), h - 1), min(max(x, 0), w - 1)])
+
+
+def luma_mc_raw_np(ref: np.ndarray, x0: int, y0: int, n: int, mv_x: int,
+                   mv_y: int, bit_depth: int = 8) -> np.ndarray:
+    """14-bit intermediate luma prediction (no final rounding) — the
+    predSamplesLX array of clause 8.5.4.2, needed for bi averaging."""
+    out = _luma_mc_acc(ref, x0, y0, n, mv_x, mv_y, bit_depth)
+    return (out >> (bit_depth - 8)).astype(np.int32) if False else out
+
+
+def luma_mc_np(ref: np.ndarray, x0: int, y0: int, n: int, mv_x: int,
+               mv_y: int, bit_depth: int = 8) -> np.ndarray:
+    """Predict an NxN luma block at (x0, y0) displaced by quarter-pel MV.
+    Out-of-frame samples use edge clamping (the padded-border rule)."""
+    out = _luma_mc_acc(ref, x0, y0, n, mv_x, mv_y, bit_depth)
+    # uni-pred final: >>6 to 14-bit then round >> (14-bd) == one rounded
+    # shift by 12-shift1 (nested-floor identity)
+    shift1 = bit_depth - 8
+    total_shift = 12 - shift1
+    out = (out + (1 << (total_shift - 1))) >> total_shift
+    return np.clip(out, 0, (1 << bit_depth) - 1).astype(np.int32)
+
+
+def _luma_mc_acc(ref, x0, y0, n, mv_x, mv_y, bit_depth):
+    """Two-stage filter accumulator before the final shift (26-bit)."""
+    fx, fy = mv_x & 3, mv_y & 3
+    ix, iy = x0 + (mv_x >> 2), y0 + (mv_y >> 2)
+    hf = LUMA_FILTERS[fx]
+    vf = LUMA_FILTERS[fy]
+    shift1 = bit_depth - 8
+    tmp = np.zeros((n + 7, n), dtype=np.int64)
+    for r in range(n + 7):
+        for c in range(n):
+            acc = 0
+            for t in range(8):
+                acc += hf[t] * _clip_fetch(ref, iy + r - 3, ix + c + t - 3)
+            tmp[r, c] = acc >> shift1
+    out = np.zeros((n, n), dtype=np.int64)
+    for r in range(n):
+        for c in range(n):
+            acc = 0
+            for t in range(8):
+                acc += vf[t] * tmp[r + t, c]
+            out[r, c] = acc
+    return out
+
+
+def bi_average_np(acc0: np.ndarray, acc1: np.ndarray,
+                  bit_depth: int = 8) -> np.ndarray:
+    """Default bi-prediction combine (clause 8.5.4.2.3.2): the two
+    26-bit accumulators are first brought to 14-bit (>> 6), then
+    averaged with shift 15 - bitDepth."""
+    p0 = acc0 >> 6
+    p1 = acc1 >> 6
+    shift = 15 - bit_depth
+    out = (p0 + p1 + (1 << (shift - 1))) >> shift
+    return np.clip(out, 0, (1 << bit_depth) - 1).astype(np.int32)
+
+
+def chroma_mc_acc_np(ref, x0, y0, n, mv_x, mv_y, bit_depth=8):
+    fx, fy = mv_x & 7, mv_y & 7
+    ix, iy = x0 + (mv_x >> 3), y0 + (mv_y >> 3)
+    hf = CHROMA_FILTERS[fx]
+    vf = CHROMA_FILTERS[fy]
+    shift1 = bit_depth - 8
+    tmp = np.zeros((n + 3, n), dtype=np.int64)
+    for r in range(n + 3):
+        for c in range(n):
+            acc = 0
+            for t in range(4):
+                acc += hf[t] * _clip_fetch(ref, iy + r - 1, ix + c + t - 1)
+            tmp[r, c] = acc >> shift1
+    out = np.zeros((n, n), dtype=np.int64)
+    for r in range(n):
+        for c in range(n):
+            acc = 0
+            for t in range(4):
+                acc += vf[t] * tmp[r + t, c]
+            out[r, c] = acc
+    return out
+
+
+def chroma_mc_np(ref: np.ndarray, x0: int, y0: int, n: int, mv_x: int,
+                 mv_y: int, bit_depth: int = 8) -> np.ndarray:
+    """Chroma MC: MV in luma quarter-pel units -> chroma eighth-pel."""
+    out = chroma_mc_acc_np(ref, x0, y0, n, mv_x, mv_y, bit_depth)
+    shift1 = bit_depth - 8
+    total_shift = 12 - shift1
+    out = (out + (1 << (total_shift - 1))) >> total_shift
+    return np.clip(out, 0, (1 << bit_depth) - 1).astype(np.int32)
+
+
+# =============================================================================
+# JAX batched versions
