@@ -41,7 +41,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      vabsdiff's measured rate); every kernel timing taken 3 times in
      turns, with its spread;
   3. card == CPU: the same clips encoded on the card and on the CPU give
-     byte-identical streams (bench configuration: 64x96 1 I + 6 P at
+     byte-identical streams (the CPU halves run in a spawned process
+     from the start of the run, beside the build, phases 1-2, the card
+     halves and phases 3a-3b) (bench configuration: 64x96 1 I + 6 P at
      me_range 10 and at me_range 7, then I + 1 P at the size in
      CARD_CPU_SIZE; fast/zerolatency: a 64x96 strobe clip, 1 I + 6 P in
      chunks of 2, where some blocks must predict from reference 1 or
@@ -54,6 +56,25 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      noise reduction 600 and the lowpass DCT: a 64x96 clip, 1 I + 4 P
      in chunks of 2; slow/zerolatency (CTU 64, RDOQ, 4 references):
      1080p I + 1 P);
+  3a. the host B path (encode_frame_b, encode_bgop,
+     encode_minigop(device=False)): card == CPU at 64x96, at 8 bits
+     with deblock, SAO and the MD5 SEI (encode_bgop over 1 I + 4, and
+     encode_minigop(device=False) over 4 frames after an IDR) and at 10
+     bits without SAO; then encode_bgop over the bench clip's first 3
+     frames at 1080p (I, P, B) with each frame type's seconds and
+     bytes: its P frame must launch the gather 4 times and the searches
+     2, its B frame none (its stream decodes from the end of phase 3);
+  3b. GOP chains and the B-layer fan-out: encode_chains and
+     encode_chains_sharded at 64x96 (bench configuration, two chains
+     of 2 P frames) on the mesh ["cuda:0"] * 2 equal to ["cpu"] * 2
+     (every result array, the per-chain rate estimates, the streams);
+     two chains of the 1080p bench clip (2 P frames each, from the bench
+     leg's I recon) on ["cuda:0"] * 2, with the gather launched 16
+     times and the searches 8, each chain's bytes equal to its own
+     single-device encode on the card, and the chain call's seconds
+     beside those two encodes'; encode_bframes_gpu(mesh=["cuda:0"] * 2)
+     on a 64x96 layer of four B frames equal to the single-device batch
+     (8 gathers and 4 searches per B frame);
   4. the bench path at full size: 1080p, 1 I (QP 29) + 24 P (CQP 32),
      pipelined chunks of 8, one warm-up pass over its first chunk (1 I
      + 8 P), one timed pass; in the timed pass the gather must have
@@ -117,7 +138,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      against the recon; the gather must have launched 4 times per P
      frame and the search 2); scale_frame 1080p -> 1280x720 card == CPU
      with its device time;
-  12. Main10: card == CPU on the 10-bit legs (synth10_clip: the I
+  12. Main10 (run before phase 11, so that its stream decodes while
+     phase 11 runs): card == CPU on the 10-bit legs (synth10_clip: the I
      frame at CTU 32; an IPPP weightp sequence with the hash;
      --preset slow --tune zerolatency --no-sao 1 I + 3 P at 72x128,
      CTU 64 with 4 references and RDOQ; a --preset fast --no-sao
@@ -133,22 +155,23 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      the CPU's 1 I + 1 P under the same flags against the pass's;
   13. decode: the port's validation decoder (x265_tpu_torch.decoder,
      numpy on the host) on the card's own streams, in DECODE_JOBS
-     spawned processes: the bench configuration's 1080p I + 1 P leg
-     against the card's recon, started as soon as phase 3 wrote it
-     (while its later legs run, before any timed pass), then after
-     every timed phase the Main10 CLI pass's 1080p I frame and up to
-     DECODE_MAIN10_P P frames after it (phase 12) against its recon
-     and its MD5 SEIs (fewer P frames when the run is late, never none
-     of the I frame), and every small-size card stream the legs write
-     (IPPP, SAO, CTU 64, placebo, NR, B, dQP, lossless, CTU 16, WPP,
-     10-bit) against the card's recon; one line per stream with its
-     frames, bytes and decode seconds per frame;
+     spawned processes, each against the card's recon (and its MD5
+     SEIs): the bench configuration's 1080p I + 1 P leg and the host B
+     path's 1080p I + P + B, started once phase 3's CPU halves are done
+     (before any timed pass), the Main10 CLI pass's 1080p I frame and
+     up to DECODE_MAIN10_P P frames after it, started right after that
+     pass (fewer P frames when the run is late, never none of the I
+     frame), and at the end every small-size card stream the legs write
+     (IPPP, SAO, CTU 64, placebo, NR, B, host B, dQP, lossless, CTU 16,
+     WPP, 10-bit); one line per stream with its frames, bytes and
+     decode seconds per frame;
   14. the kernels line (one JSON object, one entry per kernel instance:
      the gather's uint8 and uint16, the pair and 32-block searches'
      uint8 and uint16; launches summed over the timed passes of the
-     paths that run each, and per path; times and bounds per P frame at
-     the bench path's shapes for uint8 and the Main10 path's for
-     uint16, as its ms_of says), the card line, and the last line
+     paths that run each (the 1080p chain call among them), and per
+     path; times and bounds per P frame at the bench path's shapes for
+     uint8 and the Main10 path's for uint16, as its ms_of says), the
+     card line, and the last line
      {"ok": true, "device": {...}}.
 Imports neither JAX nor the x265_tpu reference package.
 """
@@ -172,6 +195,9 @@ CHUNK = 8
 PROFILE_P = 1                # P frames in each profiled chunk
 QP = 32
 CARD_CPU_SIZE = (1080, 1920)  # (h, w) of the I + 1 P card-vs-CPU leg
+BENCH_LEG = f"{CARD_CPU_SIZE[0]}x{CARD_CPU_SIZE[1]} 1I+1P"
+CPU_LEGS_SPARE = 1           # host cores left to the card's process while
+#                              phase 3's CPU halves run beside it
 BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak
 INT32_LANES_PER_SM = 64      # Hopper: INT32 lanes per SM per clock
 REPEATS = 3                  # each kernel timing, taken in turns
@@ -1131,15 +1157,13 @@ def path_stats(res, ctu=32) -> dict:
             "sao_on_share": sao, "cu64_share": cu64}
 
 
-def phase_card_equals_cpu():
-    """Each leg encoded on the card and on the CPU; returns the card's
-    results per leg."""
-    legs = (
+def card_cpu_legs():
+    """Phase 3's legs: (tag, clip, configuration, chunk)."""
+    return (
         ("64x96 1I+6P", small_clip(7), bench_config, CHUNK),
         ("64x96 1I+6P me_range 7", small_clip(7),
          lambda h, w: bench_config(h, w, me_range=7), CHUNK),
-        (f"{CARD_CPU_SIZE[0]}x{CARD_CPU_SIZE[1]} 1I+1P",
-         full_size_clip(2, CARD_CPU_SIZE), bench_config, CHUNK),
+        (BENCH_LEG, full_size_clip(2, CARD_CPU_SIZE), bench_config, CHUNK),
         ("fast/zerolatency 64x96 strobe 1I+6P chunk 2", strobe_clip(7),
          fast_config, 2),
         ("fast/zerolatency 1080x1920 1I+1P", full_size_clip(2),
@@ -1154,28 +1178,76 @@ def phase_card_equals_cpu():
          nr_lowpass_config, 2),
         ("slow/zerolatency 1080x1920 1I+1P", full_size_clip(2),
          slow_config, CHUNK))
+
+
+def cpu_leg_streams() -> dict:
+    """The CPU half of every phase-3 leg, in a spawned process (it uses
+    all but CPU_LEGS_SPARE of the host's cores): tag -> (the streams of
+    its frames, seconds)."""
+    import os
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) - CPU_LEGS_SPARE))
     out = {}
-    for tag, frames, make_cfg, chunk in legs:
+    for tag, frames, make_cfg, chunk in card_cpu_legs():
+        h, w = frames[0][0].shape
+        t0 = time.perf_counter()
+        res = encode_ippp(frames, "cpu", make_cfg(h, w), chunk=chunk)
+        out[tag] = ([r.bitstream for r in res], time.perf_counter() - t0)
+    return out
+
+
+class CpuLegs:
+    """Phase 3's CPU halves, started in a spawned process at the start of
+    the run, beside the build, the kernel phases and the card halves (at
+    1080p the CPU's I frames take most of the phase)."""
+
+    def __init__(self) -> None:
+        import multiprocessing
+        self.pool = multiprocessing.get_context("spawn").Pool(1)
+        self.result = self.pool.apply_async(cpu_leg_streams)
+
+    def get(self) -> dict:
+        try:
+            return self.result.get()
+        finally:
+            self.pool.close()
+            self.pool.join()
+
+
+def phase_card_halves() -> list:
+    """Phase 3's legs encoded on the card, each (tag, configuration,
+    results, seconds); the bench leg's stream is kept to be decoded
+    early, the small legs' for the decode phase."""
+    cards = []
+    for tag, frames, make_cfg, chunk in card_cpu_legs():
         h, w = frames[0][0].shape
         t0 = time.perf_counter()
         gpu = encode_ippp(frames, "cuda", make_cfg(h, w), chunk=chunk,
                           need_recon=True)
-        t1 = time.perf_counter()
-        cpu = encode_ippp(frames, "cpu", make_cfg(h, w), chunk=chunk)
-        t2 = time.perf_counter()
-        for i, (a, b) in enumerate(zip(gpu, cpu)):
-            if a.bitstream != b.bitstream:
-                raise AssertionError(f"card != CPU at {tag}, frame {i}")
+        cards.append((tag, make_cfg(h, w), gpu, time.perf_counter() - t0))
+        if h * w <= SMALL_AREA or tag == BENCH_LEG:
+            keep_for_decode(tag, gpu, early=tag == BENCH_LEG)
+    return cards
+
+
+def phase_card_equals_cpu(cards: list, cpu_legs: CpuLegs) -> dict:
+    """Each leg's card results (phase_card_halves) held byte for byte to
+    its CPU half (cpu_legs); returns the card's results per leg."""
+    cpu_streams = cpu_legs.get()
+    out = {}
+    for tag, cfg, gpu, card_s in cards:
+        cpu, cpu_s = cpu_streams[tag]
+        if [r.bitstream for r in gpu] != cpu:
+            raise AssertionError(f"card != CPU at {tag}")
         rec = {"card_equals_cpu": tag, "frames": len(gpu),
                "bytes": sum(len(r.bitstream) for r in gpu),
-               "card_s": t1 - t0, "cpu_s": t2 - t1}
+               "card_s": card_s, "cpu_s": cpu_s}
         if "placebo" in tag:
             last = gpu[-1].syntax
             if last.num_ref != 5 or len(set(last.ref_pocs)) != 5:
                 raise AssertionError(f"{tag}: the last P frame has "
                                      f"{last.num_ref} references")
         if "strobe" in tag or "72x128" in tag:
-            rec.update(path_stats(gpu, make_cfg(h, w).ctu_size))
+            rec.update(path_stats(gpu, cfg.ctu_size))
             if rec["ref8_gt0_share"] == 0:
                 raise AssertionError(f"{tag}: no block predicted from "
                                      f"reference 1 or later")
@@ -1185,9 +1257,6 @@ def phase_card_equals_cpu():
                 raise AssertionError(f"{tag}: no 64x64 CU")
         print(json.dumps(rec), flush=True)
         out[tag] = gpu
-        bench_leg = tag == f"{CARD_CPU_SIZE[0]}x{CARD_CPU_SIZE[1]} 1I+1P"
-        if h * w <= SMALL_AREA or bench_leg:
-            keep_for_decode(tag, gpu, early=bench_leg)
     return out
 
 
@@ -1320,6 +1389,266 @@ def phase_b_profile(frames):
         print(json.dumps({"path": "fast_b", "top_host_op": e.key[:120],
                           "self_host_ms": e.self_cpu_time_total / 1e3,
                           "calls": e.count}), flush=True)
+
+
+def host_b_config(h, w, bit_depth=8, bframes=1):
+    """The host B path's configuration (tests/test_bframes.py's SAO
+    leg): CQP 32, deblock, SAO and the MD5 SEI at 8 bits (no SAO at 10:
+    ROADMAP item 31), two references for the P frames."""
+    from x265_tpu_torch.common.params import EncoderConfig
+    return EncoderConfig(width=w, height=h, qp=QP, deblock=True,
+                         sao=bit_depth == 8, hash_sei=1, bframes=bframes,
+                         num_refs=2, bit_depth=bit_depth)
+
+
+def encode_host_b(frames, device, cfg, minigop=False, timing=None):
+    """The host B path through its user entry points: encode_bgop (I,
+    then P and one B per pair), or with minigop an IDR and
+    encode_minigop(device=False) over the rest. `timing`, when a dict,
+    receives the I, P and B frames' seconds (the device synchronized
+    around each)."""
+    from x265_tpu_torch.enc import IntraEncoder
+    enc = IntraEncoder(cfg, device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    secs = Counter()
+
+    def timed(name, fn):
+        def run(*a, **k):
+            sync()
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            sync()
+            secs[name] += time.perf_counter() - t
+            return r
+        return run
+
+    enc.encode_frame = timed("i_frame_s", enc.encode_frame)
+    enc.encode_frame_p = timed("p_frames_s", enc.encode_frame_p)
+    enc.encode_frame_b = timed("b_frames_s", enc.encode_frame_b)
+    if minigop:
+        r0 = enc.encode_frame(*frames[0])
+        enc.ref = r0.device_ref
+        res = [r0] + enc.encode_minigop(frames[1:], device=False)
+    else:
+        res = enc.encode_bgop(frames)
+    if timing is not None:
+        timing.update(secs)
+    return res
+
+
+def phase_host_b_card_equals_cpu():
+    """The host B path, card against CPU at 64x96: encode_bgop with
+    deblock, SAO and the MD5 SEI and encode_minigop(device=False) over
+    4 frames at 8 bits, encode_bgop without SAO at 10 bits;
+    byte-identical streams, every frame's recon equal."""
+    legs = (("host B encode_bgop 64x96 1I+2P+2B", b_clip(5), 8, False),
+            ("host B encode_minigop(device=False) 64x96 1I+P+3B",
+             b_clip(5), 8, True),
+            ("host B Main10 encode_bgop --no-sao 64x96 1I+P+B",
+             synth10_clip(3, 64, 96), 10, False))
+    for tag, frames, bd, minigop in legs:
+        cfg = host_b_config(64, 96, bd, bframes=3 if minigop else 1)
+        t0 = time.perf_counter()
+        gpu = encode_host_b(frames, "cuda", cfg, minigop)
+        t1 = time.perf_counter()
+        cpu = encode_host_b(frames, "cpu", cfg, minigop)
+        t2 = time.perf_counter()
+        if [r.bitstream for r in gpu] != [r.bitstream for r in cpu] or any(
+                not np.array_equal(getattr(a.recon, k), getattr(b.recon, k))
+                for a, b in zip(gpu, cpu) for k in ("y", "cb", "cr")):
+            raise AssertionError(f"card != CPU at {tag}")
+        if sum(r.ftype == "B" for r in gpu) != (3 if minigop else
+                                                (len(frames) - 1) // 2):
+            raise AssertionError(f"{tag}: frame types "
+                                 f"{''.join(r.ftype for r in gpu)}")
+        keep_for_decode(tag, gpu)
+        print(json.dumps({"card_equals_cpu": tag, "frames": len(gpu),
+                          "frame_types": "".join(r.ftype for r in gpu),
+                          "bytes": sum(len(r.bitstream) for r in gpu),
+                          "card_s": t1 - t0, "cpu_s": t2 - t1,
+                          **b_stats(gpu)}), flush=True)
+
+
+def phase_host_b_1080p():
+    """The host B path at full size: encode_bgop over the bench clip's
+    first 3 frames (I, P, B) on the card, with every launch count set to
+    0 just before it and read just after: the P frame launches the
+    gather 4 times and the searches 2 times, the B frame none (its
+    search gathers each block at its own position). The stream is kept
+    to be decoded early (DECODES.start), held to the card's recon."""
+    frames = full_size_clip(3)
+    cfg = host_b_config(1080, 1920)
+    split = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    res = encode_host_b(frames, "cuda", cfg, timing=split)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"gather_windows": 4, "int_search": 2, "int_search_pair": 1}
+    if not _want(launches, want) or any(launches["u16"].values()):
+        raise AssertionError(f"host B 1080p: launches {launches}, want "
+                             f"{want} (one P frame, the B frame none)")
+    if [r.ftype for r in res] != ["I", "P", "B"]:
+        raise AssertionError("host B 1080p: want I, P, B")
+    keep_for_decode("host B encode_bgop 1080p I+P+B", res, early=True)
+    print(json.dumps({
+        "path": "host_b", "clip": "1080p encode_bgop CQP32 deblock + SAO "
+        "+ MD5, I P B", "frames": len(res), "wall_s": wall, **split,
+        "bytes": [len(r.bitstream) for r in res], "launches": launches,
+        **b_stats(res)}), flush=True)
+
+
+def chain_streams(syns, recons, cfg, qp=None) -> list:
+    """A chain's P records (encode_chains) CABAC-coded and packed as the
+    chain's own single-device encode codes them: the chain
+    configuration's encoder right after its IDR (host only)."""
+    from x265_tpu_torch.enc import IntraEncoder
+    from x265_tpu_torch.parallel.gop_sharding import chain_config
+    enc = IntraEncoder(chain_config(cfg), device="cpu")
+    return [r.bitstream for r in enc._emit_p_frames(
+        syns, recons, cfg.qp if qp is None else qp)]
+
+
+def _chain_inputs(chains, cfg):
+    """encode_chains_sharded's padded (C, F, Hp, Wp) planes and (C, Hp,
+    Wp) references of (frames, ReconFrame) chains."""
+    m = max(32, cfg.ctu_size)
+    hp = (cfg.height_padded + m - 1) // m * m
+    wp = (cfg.width_padded + m - 1) // m * m
+
+    def padp(p, ph, pw):
+        return np.pad(np.asarray(p), ((0, ph - p.shape[0]),
+                                      (0, pw - p.shape[1])), mode="edge")
+
+    sizes = ((hp, wp), (hp // 2, wp // 2), (hp // 2, wp // 2))
+    planes = [np.stack([[padp(fr[k], *sizes[k]) for fr in frames]
+                        for frames, _ in chains]) for k in range(3)]
+    refs = [np.stack([padp(getattr(r, k), *sizes[i]) for _, r in chains])
+            for i, k in enumerate(("y", "cb", "cr"))]
+    return planes + refs
+
+
+def phase_chains_card_equals_cpu():
+    """encode_chains and encode_chains_sharded at 64x96 (bench
+    configuration, two chains of 2 P frames after their own IDR) on the
+    mesh ["cuda:0"] * 2 against ["cpu"] * 2: every result array, the
+    final references, the per-chain rate estimates and their total
+    equal, and each chain's stream equal."""
+    from x265_tpu_torch.enc import IntraEncoder
+    from x265_tpu_torch.parallel.gop_sharding import (
+        encode_chains, encode_chains_sharded, make_gop_mesh)
+    cfg = bench_config(64, 96)
+    chains = []
+    for c in range(2):
+        frames = small_clip(3, seed=11 + c)
+        r0 = IntraEncoder(cfg, device="cpu").encode_frame(*frames[0])
+        chains.append((frames[1:], r0.recon))
+    outs = {}
+    for dev in ("cuda:0", "cpu"):
+        mesh = make_gop_mesh(devices=[dev] * 2)
+        t0 = time.perf_counter()
+        sharded = encode_chains_sharded(*_chain_inputs(chains, cfg), cfg,
+                                        cfg.qp, mesh, me_range=cfg.me_range)
+        out, total = encode_chains(chains, cfg, mesh=mesh)
+        outs[dev] = (sharded, total, [chain_streams(s, r, cfg)
+                                      for s, r in out],
+                     time.perf_counter() - t0)
+    (g, gt, gs, g_s), (c, ct, cs, c_s) = outs["cuda:0"], outs["cpu"]
+    arrays = list(g[0]) + list(g[1]), list(c[0]) + list(c[1])
+    if any(not np.array_equal(a, b) or a.dtype != b.dtype
+           for a, b in zip(*arrays)) or gs != cs or gt != ct or \
+            not np.array_equal(g[3], c[3]) or g[2] != c[2]:
+        raise AssertionError("chains: card != CPU")
+    print(json.dumps({"card_equals_cpu": "encode_chains 64x96 2 chains x "
+                      "2 P on cuda:0 x 2", "chain_rates": g[3].tolist(),
+                      "total_rate": gt, "bytes": [sum(map(len, s))
+                                                  for s in gs],
+                      "card_s": g_s, "cpu_s": c_s}), flush=True)
+
+
+def phase_chains_1080p(i_ref=None):
+    """Two 1080p chains of the bench clip through encode_chains on
+    ["cuda:0"] * 2, both from the bench clip's I recon (i_ref: phase 3's
+    bench leg's; coded here when None): chain c codes frames 1 + 2c and
+    2 + 2c. The launch counts are set to 0 just
+    before the chain call and read just after (4 gathers and 2 searches
+    per P frame on the mesh). Each chain's bytes must equal its own
+    single-device encode on the card. Returns the launches."""
+    from x265_tpu_torch.enc import IntraEncoder
+    from x265_tpu_torch.parallel.gop_sharding import (
+        chain_config, encode_chains, make_gop_mesh)
+    cfg = bench_config(1080, 1920)
+    frames = [synth_1080p(i % 3, shift=2 * i) for i in range(5)]
+    if i_ref is None:
+        i_ref = IntraEncoder(cfg, device="cuda").encode_frame(
+            *frames[0], qp=cfg.qp - 3, need_recon=False).device_ref
+    chains = [(frames[1 + 2 * c:3 + 2 * c], i_ref) for c in range(2)]
+    mesh = make_gop_mesh(devices=["cuda:0"] * 2)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, total = encode_chains(chains, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"gather_windows": 16, "int_search": 8, "int_search_pair": 4}
+    if not _want(launches, want) or any(launches["u16"].values()):
+        raise AssertionError(f"chains 1080p: launches {launches}, want "
+                             f"{want}")
+    streams = [chain_streams(s, r, cfg) for s, r in out]
+    t0 = time.perf_counter()
+    single = []
+    for chain_frames, ref in chains:
+        enc = IntraEncoder(chain_config(cfg), device="cuda")
+        enc.ref = ref
+        single.append([r.bitstream for r in enc.encode_pgop(chain_frames)])
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    if streams != single:
+        raise AssertionError("chains 1080p: a chain's stream differs from "
+                             "its single-device encode")
+    print(json.dumps({
+        "path": "chains", "clip": "1080p bench configuration, 2 chains x "
+        "2 P from one I recon, mesh cuda:0 x 2", "chain_call_s": chain_s,
+        "single_device_encodes_s": single_s, "total_rate": total,
+        "bytes": [sum(map(len, s)) for s in streams],
+        "launches": launches}), flush=True)
+    return launches
+
+
+def phase_b_fan_out():
+    """encode_bframes_gpu(mesh=["cuda:0"] * 2) on a 64x96 layer of four B
+    frames (--preset fast) equal to the single-device batch: every
+    syntax field and recon; the launch counts (set to 0 just before the
+    fanned-out call, read just after) 8 gathers and 4 searches per B
+    frame."""
+    from x265_tpu_torch.enc import IntraEncoder
+    from x265_tpu_torch.enc.bframe_gpu import encode_bframes_gpu
+    cfg = fast_b_config(64, 96)
+    frames = b_clip(6)
+    enc = IntraEncoder(cfg, device="cuda")
+    r0 = enc.encode_frame(*frames[0])
+    enc.ref = r0.device_ref
+    r5 = enc.encode_pgop([frames[5]])[0]
+    args = (frames[1:5], [r0.device_ref] * 4, [r5.recon] * 4, cfg, QP + 2)
+    one = encode_bframes_gpu(*args, device="cuda")
+    reset_launches()
+    fan = encode_bframes_gpu(*args, mesh=["cuda:0"] * 2)
+    launches = read_launches()
+    want = {"gather_windows": 32, "int_search": 16}
+    if not _want(launches, want):
+        raise AssertionError(f"B fan-out: launches {launches}, want {want}")
+    fields = ("depth8", "mv8", "pf8", "coeff_y", "coeff_cb", "coeff_cr")
+    if len(fan[0]) != 4 or any(
+            not np.array_equal(getattr(a, f), getattr(b, f))
+            for a, b in zip(one[0], fan[0]) for f in fields) or any(
+            not np.array_equal(getattr(a, k), getattr(b, k))
+            for a, b in zip(one[1], fan[1]) for k in ("y", "cb", "cr")):
+        raise AssertionError("B fan-out != the single-device batch")
+    pf = np.concatenate([s.pf8.ravel() for s in fan[0]])
+    print(json.dumps({"b_fan_out": "64x96 fast, 4 B frames on cuda:0 x 2",
+                      "equals_single_device": True, "launches": launches,
+                      "bi_share": float((pf == 3).mean())}), flush=True)
 
 
 def phase_dqp_card_equals_cpu():
@@ -2052,15 +2381,17 @@ def phase_main10_card_equals_cpu(workdir):
                       "sps": sps_fields(outs["cuda"][0])}), flush=True)
 
 
-def phase_main10(workdir):
+def phase_main10(workdir, elapsed_s=0.0):
     """Main10 at 1080p through the CLI: the card == CPU legs, then the
     bench clip lifted to 10 bits (synth10_1080p) as a 25-frame 420p10
     y4m through one timed pass of CLI_MAIN10 (cli_pass: the uint16
     gather 4 times and the uint16 searches 2 times per P frame, no
     uint8 instance; every MD5 SEI against the 10-bit recon; the SPS's
     Main10 profile and bit depth; kb/s within 5% of 3000 and no VBV
-    underflow; the CPU's 1 I + 1 P against the pass's). Returns the
-    launches."""
+    underflow; the CPU's 1 I + 1 P against the pass's), whose stream
+    starts decoding at once. elapsed_s: the run's seconds at the
+    phase's start. Returns the launches."""
+    t0 = time.perf_counter()
     phase_main10_card_equals_cpu(workdir)
     frames = [synth10_1080p(i) for i in range(GOP)]
     src = write_y4m(f"{workdir}/bench10.y4m", frames, bit_depth=10)
@@ -2068,8 +2399,14 @@ def phase_main10(workdir):
     run = cli_pass(src, f"{workdir}/cli_main10", CLI_MAIN10, 10,
                    path="cli_main10")
     out = f"{workdir}/cli_main10"
+    # its I frame and DECODE_MAIN10_P P frames, one fewer from each
+    # DECODE_LATE_S mark the run has passed, decoded from now on
+    late = sum(elapsed_s + time.perf_counter() - t0 > s
+               for s in DECODE_LATE_S)
+    DECODES.main10_p = max(DECODE_MAIN10_P - late, 0)
     keep_cli_for_decode("cli_main10 1080p", open(out + ".hevc", "rb").read(),
-                        out + ".y4m", frames=1 + DECODE_MAIN10_P)
+                        out + ".y4m", frames=1 + DECODES.main10_p, early=True)
+    DECODES.start()
     return run["launches"]
 
 
@@ -2086,25 +2423,32 @@ SLICE_NALS = (0, 1, 19, 20, 21)   # TRAIL_N, TRAIL_R, IDR_W_RADL, IDR_N_LP,
 class Decodes:
     """The card streams kept for the decode phase, each (tag, stream,
     [(poc, y, cb, cr)] in decode order, frame types), and the phase's
-    processes: one spawned pool of DECODE_JOBS, started by the first
-    stream decoded early (the bench leg's 1080p I + P, while the later
-    card == CPU legs run, before any timed pass: its minute and a half
-    would otherwise end the run)."""
+    processes: one spawned pool of DECODE_JOBS. The 1080p streams are
+    decoded early, each in a job of its own from start(): the bench
+    leg's and the host B path's once phase 3's CPU halves are done
+    (before any timed pass), the Main10 pass's right after it (phase 12
+    runs before the CLI phase), so that none of their minutes ends the
+    run."""
 
     def __init__(self) -> None:
         self.kept = []
+        self.waiting = []        # early streams not started yet
         self.early = []          # AsyncResults of the early streams
         self.pool = None
+        self.main10_p = None     # P frames of the Main10 pass decoded
 
     def keep(self, item, early=False) -> None:
-        if not early:
-            self.kept.append(item)
-            return
+        (self.waiting if early else self.kept).append(item)
+
+    def start(self) -> None:
+        """Start decoding the early streams kept so far."""
         if self.pool is None:
             import multiprocessing
             self.pool = multiprocessing.get_context("spawn").Pool(
                 DECODE_JOBS)
-        self.early.append(self.pool.apply_async(decode_job, ([item],)))
+        self.early.extend(self.pool.apply_async(decode_job, ([item],))
+                          for item in self.waiting)
+        self.waiting = []
 
 
 DECODES = Decodes()
@@ -2117,7 +2461,7 @@ def _recon_planes(r):
 
 def keep_for_decode(tag, results, early=False) -> None:
     """Keep a leg's card stream (results in decode order) and its recon
-    for phase_decode; early: start decoding it now."""
+    for phase_decode; early: to be decoded from the next DECODES.start()."""
     DECODES.keep((tag, b"".join(r.bitstream for r in results),
                   [(r.poc, *_recon_planes(r)) for r in results],
                   "".join(r.ftype for r in results)), early)
@@ -2137,10 +2481,12 @@ def first_pictures(stream: bytes, n: int) -> bytes:
     return b"".join(out)
 
 
-def keep_cli_for_decode(tag, stream: bytes, recon_y4m, frames=None) -> None:
+def keep_cli_for_decode(tag, stream: bytes, recon_y4m, frames=None,
+                        early=False) -> None:
     """Keep an IPPP CLI stream (decode order is display order, POC the
     frame index) with its --recon y4m, cut to its first `frames`
-    pictures when given (phase_decode may cut it further)."""
+    pictures when given; early: to be decoded from the next
+    DECODES.start()."""
     from x265_tpu_torch.io import Y4MReader
     recon = []
     for k, planes in enumerate(Y4MReader(str(recon_y4m))):
@@ -2149,7 +2495,7 @@ def keep_cli_for_decode(tag, stream: bytes, recon_y4m, frames=None) -> None:
         recon.append((k, *planes))
     if frames is not None:
         stream = first_pictures(stream, frames)
-    DECODES.keep((tag, stream, recon, "I" + "P" * (len(recon) - 1)))
+    DECODES.keep((tag, stream, recon, "I" + "P" * (len(recon) - 1)), early)
 
 
 def decode_job(items) -> list:
@@ -2207,34 +2553,21 @@ def decode_job(items) -> list:
 
 def phase_decode(elapsed_s: float) -> list:
     """Every kept card stream through the port's validation decoder
-    (decode_job) in the Decodes pool, started when the bench leg's
-    1080p I + P went to it early: now the Main10 1080p pass's I frame
-    and its P frames (DECODE_MAIN10_P of them, one fewer from each
-    DECODE_LATE_S mark the run has passed at this phase's start) in one
-    process, the small streams spread over the others. One line per
-    stream, then this phase's wall seconds and the cut. Returns the
-    records."""
-    import multiprocessing
-    late = sum(elapsed_s > s for s in DECODE_LATE_S)
-    n_p = max(DECODE_MAIN10_P - late, 0)
-    big, small = [], []
-    for tag, stream, recon, types in DECODES.kept:
-        if tag == "cli_main10 1080p":
-            stream = first_pictures(stream, 1 + n_p)
-            recon, types = recon[:1 + n_p], types[:1 + n_p]
-        item = (tag, stream, recon, types)
-        (big if recon[0][1].size > SMALL_AREA else small).append(item)
-    if len(big) != 1 or len(DECODES.early) != 1:
-        raise AssertionError(f"decode: want the bench leg's 1080p stream "
-                             f"early and the Main10 pass's now, kept "
-                             f"{len(DECODES.early)} and "
-                             f"{[b[0] for b in big]}")
-    n_small = max(DECODE_JOBS - len(big), 1)
-    small.sort(key=lambda it: -len(it[1]))
-    jobs = [[b] for b in big] + [small[k::n_small] for k in range(n_small)]
+    (decode_job) in the Decodes pool: the small streams spread over its
+    processes, beside the early 1080p streams still decoding. One line
+    per stream, then this phase's wall seconds and the Main10 pass's
+    P frames decoded and cut. Returns the records."""
+    big = [it[0] for it in DECODES.kept if it[2][0][1].size > SMALL_AREA]
+    if big or DECODES.waiting or len(DECODES.early) != 3:
+        raise AssertionError(f"decode: want the bench leg's, the host B "
+                             f"path's and the Main10 pass's 1080p streams "
+                             f"decoding early, got {len(DECODES.early)} "
+                             f"early, {len(DECODES.waiting)} not started, "
+                             f"{big} kept")
+    small = sorted(DECODES.kept, key=lambda it: -len(it[1]))
+    jobs = [small[k::DECODE_JOBS] for k in range(DECODE_JOBS)]
     t0 = time.perf_counter()
-    pool = DECODES.pool or multiprocessing.get_context("spawn").Pool(
-        DECODE_JOBS)
+    pool = DECODES.pool
     try:
         pending = [pool.apply_async(decode_job, (job,)) for job in jobs]
         done = [r.get() for r in DECODES.early + pending]
@@ -2248,9 +2581,12 @@ def phase_decode(elapsed_s: float) -> list:
     print(json.dumps({"decode_phase_s": wall, "streams": len(records),
                       "frames": sum(r["frames"] for r in records),
                       "processes": DECODE_JOBS,
-                      "decoded_early": [r["decode"] for r in done[0]],
-                      "cli_main10_p_frames_decoded": n_p,
-                      "cli_main10_p_frames_cut": DECODE_MAIN10_P - n_p,
+                      "decoded_early": [r["decode"] for job in
+                                        done[:len(DECODES.early)]
+                                        for r in job],
+                      "cli_main10_p_frames_decoded": DECODES.main10_p,
+                      "cli_main10_p_frames_cut":
+                          DECODE_MAIN10_P - DECODES.main10_p,
                       "elapsed_at_start_s": elapsed_s}), flush=True)
     return records
 
@@ -2265,6 +2601,7 @@ def main() -> int:
     card = card_line()
     t0 = time.perf_counter()
     phase_s, last = {}, [t0]
+    cpu_legs = CpuLegs()
 
     def done(phase):
         """Record the seconds since the previous phase ended."""
@@ -2302,14 +2639,33 @@ def main() -> int:
     search["cli_main10"] = search.pop("main10")
     log("kernel == plain at every main-path shape")
     done("kernels")
-    legs = phase_card_equals_cpu()
+    cards = phase_card_halves()
+    log("card == CPU: the card halves ran")
+    done("card_halves")
+    # phase 3's CPU halves are still running: the host B path and the
+    # chains run on the card meanwhile
+    phase_host_b_card_equals_cpu()
+    log("host B path: card == CPU")
+    phase_host_b_1080p()
+    log("host B path at 1080p ran")
+    done("host_b")
+    launches = {}
+    phase_chains_card_equals_cpu()
+    log("chains: card == CPU")
+    launches["chains"] = phase_chains_1080p(
+        next(gpu for tag, _, gpu, _ in cards if tag == BENCH_LEG)[0]
+        .device_ref if CARD_CPU_SIZE == (1080, 1920) else None)
+    log(f"chains at 1080p ran, launches {launches['chains']}")
+    phase_b_fan_out()
+    log("B fan-out == the single-device batch")
+    done("chains_and_fan_out")
+    legs = phase_card_equals_cpu(cards, cpu_legs)
+    DECODES.start()
     log("card == CPU")
     done("card_equals_cpu")
-    launches = {}
     for path, make_cfg, first in (
             ("bench", bench_config,
-             legs[f"{CARD_CPU_SIZE[0]}x{CARD_CPU_SIZE[1]} 1I+1P"]
-             if CARD_CPU_SIZE == (1080, 1920) else []),
+             legs[BENCH_LEG] if CARD_CPU_SIZE == (1080, 1920) else []),
             ("fast", fast_config, legs["fast/zerolatency 1080x1920 1I+1P"]),
             ("medium", medium_config,
              legs["medium/zerolatency 1080x1920 1I+1P"]),
@@ -2335,14 +2691,16 @@ def main() -> int:
     launches["aq_cutree"] = phase_aq_cutree(first)
     log(f"aq_cutree path ran, launches {launches['aq_cutree']}")
     done("aq_cutree_path_and_profile")
+    # Main10 before the CLI phase, so that its stream decodes meanwhile
+    with tempfile.TemporaryDirectory() as workdir:
+        launches["cli_main10"] = phase_main10(workdir,
+                                              time.perf_counter() - t0)
+    log(f"cli_main10 ran, launches {launches['cli_main10']}")
+    done("main10")
     with tempfile.TemporaryDirectory() as workdir:
         launches["cli"] = phase_cli(workdir)
     log(f"cli ran, launches {launches['cli']}")
     done("cli")
-    with tempfile.TemporaryDirectory() as workdir:
-        launches["cli_main10"] = phase_main10(workdir)
-    log(f"cli_main10 ran, launches {launches['cli_main10']}")
-    done("main10")
     phase_decode(time.perf_counter() - t0)
     log("decode: every kept card stream decodes to its recon")
     done("decode")
@@ -2355,6 +2713,7 @@ def main() -> int:
     search["fast_b"] = search["fast"]
     for path in ("aq_cutree", "cli"):
         gather[path], search[path] = gather["medium"], search["medium"]
+    gather["chains"], search["chains"] = gather["bench"], search["bench"]
     print(json.dumps({"kernels_per_path": {
         path: {"gather_windows": {**{k: gather[path][k] for k in
                                      ("ms", "plain_ms", "library_ms",
@@ -2366,7 +2725,7 @@ def main() -> int:
                               "launches": launches[path]["int_search"]}}
         for path in launches}}), flush=True)
     # each kernel instance: its launches summed over the timed passes of
-    # the paths that run it (uint8: the seven 8-bit paths; uint16: the
+    # the paths that run it (uint8: the eight 8-bit paths; uint16: the
     # Main10 CLI pass), by path; its times and bound per P frame at
     # the shapes of one path (ms_of: the bench path for uint8, the
     # Main10 path for uint16)

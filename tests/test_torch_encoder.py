@@ -156,8 +156,10 @@ def test_p_chunk_matches_reference():
 
 def test_package_imports_neither_jax_nor_reference():
     """Every module of x265_tpu_torch (the B path's enc/bframe_gpu.py and
-    enc/lookahead.py, ops/fma.py, the device lookahead
-    enc/lookahead_gpu.py, the host I path's ops/sao.py and
+    enc/lookahead.py, the host B path's enc/bi_frame.py, ops/me.py and
+    ops/interp.py, the chain mesh's parallel/gop_sharding.py, ops/fma.py,
+    the device lookahead enc/lookahead_gpu.py, the host I path's
+    ops/sao.py and
     ops/intra_np.py, and the CLI's cli.py, abr.py, enc/ratecontrol.py,
     io/, bitstream/sei.py, bitstream/hdr10plus.py, ops/metrics.py,
     ops/scaler.py and version.py among them, and the validation decoder
@@ -175,7 +177,9 @@ def test_package_imports_neither_jax_nor_reference():
         "          'bitstream.sei', 'bitstream.hdr10plus', 'ops.metrics',\n"
         "          'ops.scaler', 'version', 'decoder', 'decoder.decoder',\n"
         "          'bitstream.syntax', 'bitstream.cabac',\n"
-        "          'bitstream.bitreader', 'common.mv_derive'):\n"
+        "          'bitstream.bitreader', 'common.mv_derive',\n"
+        "          'enc.bi_frame', 'ops.me', 'ops.interp', 'parallel',\n"
+        "          'parallel.gop_sharding'):\n"
         "    assert 'x265_tpu_torch.' + n in names, n\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
@@ -270,11 +274,10 @@ def test_ctu16_raises_naming_the_host_recon_i_path():
                      device="cpu")
 
 
-def test_b_frames_at_ctu64_and_the_host_b_path_raise():
+def test_b_frames_at_ctu64_raise():
     """B frames at CTU 64 (--preset medium without a tune) wait for a
-    reference whose CTU-64 B streams decode; the host B path
-    (encode_minigop(device=False), encode_frame_b, encode_bgop) is not
-    ported. Each raises naming its ROADMAP item."""
+    reference whose CTU-64 B streams decode: the encoder and the device
+    B path raise naming ROADMAP item 28."""
     from x265_tpu_torch.enc.bframe_gpu import encode_bframes_gpu
     cfg = EncoderConfig(width=64, height=64, qp=32)
     cfg.apply_preset("medium")
@@ -285,16 +288,6 @@ def test_b_frames_at_ctu64_and_the_host_b_path_raise():
     cfg.bframes = 0
     with pytest.raises(NotImplementedError, match="item 28"):
         encode_bframes_gpu([], [], [], cfg, 33, device="cpu")
-    enc = IntraEncoder(EncoderConfig(width=64, height=64, qp=32, bframes=3),
-                       device="cpu")
-    z = np.zeros((64, 64), np.uint8)
-    zc = np.zeros((32, 32), np.uint8)
-    for call in (lambda: enc.encode_minigop([(z, zc, zc)] * 2, device=False),
-                 lambda: enc.encode_frame_b(z, zc, zc, None, None, 1, (0, 2)),
-                 lambda: enc.encode_bgop([(z, zc, zc)] * 3)):
-        with pytest.raises(NotImplementedError,
-                           match="host B path.*ROADMAP queue 1 item 29"):
-            call()
 
 
 def test_host_recon_i_path_raises():

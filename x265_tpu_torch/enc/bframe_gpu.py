@@ -32,6 +32,7 @@ from ..common.tables import chroma_qp, lambda_from_qp, lambda2_from_qp
 from ..device import resolve_device
 from ..ops.deblock import deblock_luma_t
 from ..ops.fma import fma32
+from ..ops.interp import bi_average as _bi_combine
 from ..ops.me import _downsample4
 from ..ops.me_win import _argmin_first, me_all_sizes, pad_ref
 from ..ops.sao_gpu import apply_sao_t, choose_sao_chroma_t, choose_sao_t
@@ -49,15 +50,6 @@ from .pgop_gpu import (B_CTU64, SIZES, _blk_sse, _blocks_of, _qp_vec_of,
 # and split bits (bframe_tpu.py passes none of its own)
 _CALIB = (1.4, 1.2, 5.0)
 _HDR_BITS, _SPLIT_BITS = 5.0, 3.0
-
-
-def _bi_combine(raw0: torch.Tensor, raw1: torch.Tensor,
-                bit_depth: int) -> torch.Tensor:
-    """Default weighted sample prediction, bi case (8.5.4.2.3.2): 26-bit
-    accumulators -> 14-bit intermediates -> averaged."""
-    shift = 15 - bit_depth
-    p = (raw0 >> 6) + (raw1 >> 6) + (1 << (shift - 1))
-    return torch.clamp(p >> shift, 0, (1 << bit_depth) - 1)
 
 
 def _bs_maps_b_t(depth8, mvb, pf8, cf_y, ctu: int):
@@ -278,13 +270,13 @@ def _bframe(refs0, refs1, oy, ocb, ocr, *, qp: int, qpc: int,
 
 def _planes_on(ref, dev, h: int, w: int, bit_depth: int = 8):
     """A reference's (y, cb, cr) planes (pixel_dtype) at the coded size
-    on the device: a DeviceRef in place (slot 0 of a stack), a host
-    ReconFrame uploaded."""
+    on the device: a DeviceRef in place (slot 0 of a stack; copied when
+    it lies on another device), a host ReconFrame uploaded."""
     if isinstance(ref, DeviceRef):
         planes = (ref.y, ref.cb, ref.cr)
         if ref.y.dim() == 3:
             planes = tuple(p[0] for p in planes)
-        return planes
+        return tuple(p.to(dev) for p in planes)
     return tuple(torch.from_numpy(np.ascontiguousarray(
         np.asarray(p)[:hh, :ww].astype(np_pixel_dtype(bit_depth)))).to(dev)
         for p, hh, ww in ((ref.y, h, w), (ref.cb, h // 2, w // 2),
@@ -299,13 +291,29 @@ def encode_bframes_gpu(frames, ref0s, ref1s, cfg: EncoderConfig, qp: int,
     ref1s: per frame its L0 / L1 reference, a DeviceRef (used in place)
     or a host ReconFrame (uploaded once); qp_maps: (F, ncty, nctx)
     per-CTU QP maps (dQP), fitted to the scan's CTU grid, flat at qp
-    when cfg.dqp_enabled and none are given (syn.qp_map). Returns (syns: FrameBSyntax
-    list, recons: host ReconFrame list, device_refs: DeviceRef list of
-    the filtered recons, for the layers that predict from them)."""
+    when cfg.dqp_enabled and none are given (syn.qp_map). Returns (syns:
+    FrameBSyntax list, recons: host ReconFrame list, device_refs:
+    DeviceRef list of the filtered recons, for the layers that predict
+    from them). mesh: an ordered list of devices (parallel/gop_sharding.py
+    make_gop_mesh) over which the layer fans out in contiguous shards of
+    F / n frames, shard k on mesh device k with its references moved
+    there; F must be a multiple of n. The results come back in frame
+    order."""
     if mesh is not None:
-        raise NotImplementedError(
-            "B-layer fan-out across GPUs: not ported yet (ROADMAP queue 1 "
-            "item 23)")
+        mesh = list(mesh)
+        if len(frames) % len(mesh):
+            raise ValueError(f"{len(frames)} B frames do not tile a mesh "
+                             f"of {len(mesh)}")
+        fl = len(frames) // len(mesh)
+        outs = ([], [], [])
+        for k, dev in enumerate(mesh):
+            part = slice(k * fl, (k + 1) * fl)
+            for acc, got in zip(outs, encode_bframes_gpu(
+                    frames[part], ref0s[part], ref1s[part], cfg, qp,
+                    qp_maps=None if qp_maps is None else qp_maps[part],
+                    device=dev)):
+                acc.extend(got)
+        return outs
     check_pgop_config(cfg)
     if cfg.ctu_size == 64:
         raise NotImplementedError(B_CTU64)

@@ -8,7 +8,9 @@ one batched wavefront, encode_gop), or through the host-recon I path
 (one or several references, TMVP, SAO, RDOQ, noise reduction, the
 lowpass DCT, per-CTU QP maps), hierarchical mini-GOPs whose B layers
 run through enc/bframe_gpu.py (RDOQ too; the I frame, as the
-reference's, uses none of the three), and encode_sequence, whose QP
+reference's, uses none of the three), B frames one at a time through
+the host B path (enc/bi_frame.py: encode_frame_b, encode_bgop,
+encode_minigop(device=False)), and encode_sequence, whose QP
 maps come from the device lookahead (enc/lookahead_gpu.py, AQ and
 cuTree); every frame entropy-coded by the native CABAC (with WPP one
 substream per CTU row; an I frame by the Python slice coder,
@@ -44,7 +46,8 @@ from ..common.tables import lambda2_from_qp
 from ..device import resolve_device
 from ..native.entropy_native import (encode_slice_native,
                                      encode_slice_wpp_native)
-from ..ops.deblock import deblock_frame, deblock_frame_np
+from ..ops.deblock import (deblock_frame, deblock_frame_np, deblock_luma_np,
+                           inter_bs_maps_b)
 from ..ops.sao import (apply_sao_component_np, choose_sao_chroma,
                        choose_sao_params)
 from ..ops.sao_gpu import apply_sao_t, choose_sao_chroma_t, choose_sao_t
@@ -55,11 +58,6 @@ from .intra_recon import (DeviceRef, ReconFrame, np_pixel_dtype, pixel_dtype,
 from .intra_recon_gpu import reconstruct_intra_gop_gpu
 from .pgop_gpu import (check_pgop_config, collect_pgop_gpu, ctu_grid,
                        submit_pgop_gpu)
-
-HOST_B_PATH = ("the host B path (enc/bi_frame.py, encode_frame_b, "
-               "encode_bgop, encode_minigop(device=False)): not ported yet "
-               "(ROADMAP queue 1 item 29)")
-
 
 def pad_plane(p: np.ndarray, h: int, w: int) -> np.ndarray:
     """Edge-replicate to the coded (padded) size."""
@@ -696,11 +694,84 @@ class IntraEncoder:
         return FrameResult(bitstream=stream, recon=recon, syntax=syn,
                            bits=len(stream) * 8, poc=poc, ftype="B")
 
-    def encode_frame_b(self, *args, **kwargs):
-        raise NotImplementedError(HOST_B_PATH)
+    def encode_frame_b(self, y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                       ref0, ref1, poc: int, poc_refs: tuple[int, int],
+                       qp: int | None = None, is_ref: bool = False,
+                       rps_neg=None, rps_pos=None) -> FrameResult:
+        """One B frame between two references (the host B path): each a
+        DeviceRef, used on the device, or a host ReconFrame. Two-list ME
+        and the dense recon on the device (enc/bi_frame.py), the L0 / L1
+        / BI choice and the depth merge on the host; then the luma
+        deblock with B boundary strengths and SAO on the host, and the
+        native CABAC. is_ref marks a pyramid reference B (BREF);
+        rps_neg / rps_pos give the retention RPS of hierarchical GOPs.
+        Under dQP the slice codes a flat QP map at its QP."""
+        from .bi_frame import encode_b_frame_arrays
+        cfg = self.cfg
+        qp = cfg.qp if qp is None else qp
+        w, h = cfg.width_padded, cfg.height_padded
+        yp = pad_plane(np.asarray(y), h, w)
+        cbp = pad_plane(np.asarray(cb), h // 2, w // 2)
+        crp = pad_plane(np.asarray(cr), h // 2, w // 2)
+        syn, recon = encode_b_frame_arrays(yp, cbp, crp, ref0, ref1, cfg,
+                                           poc, poc_refs, qp,
+                                           device=self.device)
+        if cfg.deblock:
+            vbs, hbs = inter_bs_maps_b(syn.depth8, syn.mv8, syn.pf8,
+                                       syn.coeff_y, cfg.ctu_size)
+            recon = ReconFrame(
+                deblock_luma_np(recon.y, vbs, hbs, qp, cfg.bit_depth),
+                recon.cb, recon.cr)
+        if cfg.sao:
+            p_y = choose_sao_params(yp, recon.y, cfg.ctu_size, qp,
+                                    cfg.bit_depth)
+            p_cb, p_cr = choose_sao_chroma(cbp, recon.cb, crp, recon.cr,
+                                           cfg.ctu_size // 2, qp,
+                                           cfg.bit_depth)
+            recon = ReconFrame(
+                apply_sao_component_np(recon.y, p_y, cfg.ctu_size,
+                                       cfg.bit_depth),
+                apply_sao_component_np(recon.cb, p_cb, cfg.ctu_size // 2,
+                                       cfg.bit_depth),
+                apply_sao_component_np(recon.cr, p_cr, cfg.ctu_size // 2,
+                                       cfg.bit_depth))
+            syn.sao_params = (p_y, p_cb, p_cr)
+        return self._emit_b_frame(syn, recon, qp, poc, poc_refs, is_ref,
+                                  rps_neg, rps_pos)
 
-    def encode_bgop(self, *args, **kwargs):
-        raise NotImplementedError(HOST_B_PATH)
+    def _newest_picture(self) -> DeviceRef:
+        """The newest picture of self.ref, a P chunk's DeviceRef stack,
+        as a single-picture DeviceRef (self.ref is left as it is)."""
+        return DeviceRef(*(p[0] for p in (self.ref.y, self.ref.cb,
+                                          self.ref.cr)))
+
+    def encode_bgop(self, frames) -> list[FrameResult]:
+        """IBPBP over the host B path: an IDR, then alternating forward
+        P pictures (poc_step 2) and one non-reference B between each
+        pair; a last unpaired frame is a P. Results are in decode order
+        (I P B P B ...)."""
+        if not frames:
+            raise ValueError("encode_bgop needs at least one frame")
+        r = self.encode_frame(*frames[0])
+        self.ref = r.device_ref
+        self.poc = 0
+        results = [r]
+        i = 1
+        while i < len(frames):
+            if i + 1 < len(frames):
+                # the P at display i + 1 is coded first, then the B at i
+                prev_ref = self._newest_ref()
+                prev_poc = self.poc
+                rp = self.encode_frame_p(*frames[i + 1], poc_step=2)
+                rb = self.encode_frame_b(
+                    *frames[i], prev_ref, self._newest_picture(),
+                    prev_poc + 1, (prev_poc, prev_poc + 2))
+                results.extend([rp, rb])
+                i += 2
+            else:
+                results.append(self.encode_frame_p(*frames[i]))
+                i += 1
+        return results
 
     def encode_minigop(self, frames, qp: int | None = None,
                        device: bool = True) -> list[FrameResult]:
@@ -712,9 +783,9 @@ class IntraEncoder:
         reference BREFs. QP ladder: P qp, BREF qp + 1, B qp + 2, plus
         layer - 1 below layer 1. Returns results in decode order and
         leaves self.ref at the anchor's single picture (a run of one
-        leaves the P chunk's reference stack, as the reference does)."""
-        if not device:
-            raise NotImplementedError(HOST_B_PATH)
+        leaves the P chunk's reference stack, as the reference does).
+        device=False codes the B frames one at a time through the host B
+        path (encode_frame_b)."""
         from .bframe_gpu import encode_bframes_gpu
         cfg = self.cfg
         qp = cfg.qp if qp is None else qp
@@ -725,8 +796,7 @@ class IntraEncoder:
         results = [rp]
         if L == 1:
             return results          # self.ref: the P chunk's stack
-        anchor = DeviceRef(*(p[0] for p in (self.ref.y, self.ref.cb,
-                                            self.ref.cr)))
+        anchor = self._newest_picture()
         dpb = {base: prev_ref, base + L: anchor}
 
         sched: list[tuple[int, int, int, bool, int]] = []
@@ -751,6 +821,23 @@ class IntraEncoder:
             return (sorted([(poc - p, p == lo) for p in retained if p < poc]),
                     sorted([(p - poc, p == hi) for p in retained if p > poc]))
 
+        def bqp_of(layer, is_ref):
+            return min(qp + (1 if is_ref else 2) + max(layer - 1, 0), 51)
+
+        if not device:
+            for i, (poc, lo, hi, is_ref, layer) in enumerate(order):
+                rps_neg, rps_pos = rps_of(i, poc, lo, hi)
+                rb = self.encode_frame_b(
+                    *frames[poc - base - 1], dpb[lo], dpb[hi], poc, (lo, hi),
+                    qp=bqp_of(layer, is_ref), is_ref=is_ref,
+                    rps_neg=rps_neg, rps_pos=rps_pos)
+                if is_ref:
+                    dpb[poc] = rb.recon
+                results.append(rb)
+            self.ref = anchor
+            self.poc = base + L
+            return results
+
         i = 0
         while i < len(order):
             # a run with the same (layer, is_ref) shares its QP
@@ -760,7 +847,7 @@ class IntraEncoder:
                     order[j][3] == is_ref:
                 j += 1
             group = order[i:j]
-            bqp = min(qp + (1 if is_ref else 2) + max(layer - 1, 0), 51)
+            bqp = bqp_of(layer, is_ref)
             syns, recons, drefs = encode_bframes_gpu(
                 [frames[e[0] - base - 1] for e in group],
                 [dpb[e[1]] for e in group], [dpb[e[2]] for e in group],

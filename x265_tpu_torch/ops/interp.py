@@ -1,16 +1,21 @@
 """HEVC sub-pel interpolation (clause 8.5.4.2): 8-tap luma quarter-pel,
 4-tap chroma eighth-pel.
 
-The filter tables, and the numpy oracles of the normative
+The filter tables, the numpy oracles of the normative
 fractional-sample process (luma_mc_np / chroma_mc_np and their
-accumulators), copies of those of x265_tpu/ops/interp.py, which the
-validation decoder (decoder/) predicts with. The encoder's filtering
-lives where the windowed motion search applies it (ops/me_win.py).
+accumulators), which the validation decoder (decoder/) predicts with,
+and the batched block MC of the host B path (mc_block_batch,
+bi_average): counterparts of those of x265_tpu/ops/interp.py. The P
+and device-B scans filter where the windowed motion search applies it
+(ops/me_win.py).
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
+import torch
 
 # Table 8-11: luma interpolation filter coefficients per quarter position
 LUMA_FILTERS = np.array([
@@ -136,4 +141,70 @@ def chroma_mc_np(ref: np.ndarray, x0: int, y0: int, n: int, mv_x: int,
 
 
 # =============================================================================
-# JAX batched versions
+# batched block MC (torch)
+# =============================================================================
+
+def _gather_patches(plane: torch.Tensor, x0s: torch.Tensor,
+                    y0s: torch.Tensor, size: int) -> torch.Tensor:
+    """(B, size, size) patches at integer positions with edge clamping
+    (the plane is unpadded; clamping reproduces border extension). The
+    plane is read as int32: torch's CUDA build has no tensor-indexed
+    read of uint16."""
+    plane = plane.to(torch.int32)
+    h, w = plane.shape
+    ar = torch.arange(size, device=plane.device)
+    ys = torch.clamp(y0s[:, None] + ar[None, :], 0, h - 1)
+    xs = torch.clamp(x0s[:, None] + ar[None, :], 0, w - 1)
+    return plane[ys[:, :, None], xs[:, None, :]]
+
+
+@lru_cache(maxsize=None)
+def _filter_bank(is_luma: bool) -> np.ndarray:
+    return LUMA_FILTERS if is_luma else CHROMA_FILTERS
+
+
+def mc_block_batch(ref: torch.Tensor, x0s: torch.Tensor, y0s: torch.Tensor,
+                   mvx: torch.Tensor, mvy: torch.Tensor, n: int, *,
+                   is_luma: bool = True, bit_depth: int = 8,
+                   raw: bool = False) -> torch.Tensor:
+    """Motion-compensate B same-size blocks with per-block MVs.
+
+    ref: (H, W) plane; x0s/y0s: (B,) int block origins; mvx/mvy: (B,)
+    MVs in quarter-pel (luma) units, eighth-pel of chroma. Returns (B,
+    n, n) int32 predictions, or with raw the 26-bit accumulators
+    (>> 6 is the 14-bit prediction). int32 arithmetic: every partial
+    sum is below 2^24, the integers the reference's float32 einsums
+    hold exactly, so the two agree."""
+    taps = LUMA_TAPS if is_luma else CHROMA_TAPS
+    half = taps // 2 - 1
+    frac, sh = (3, 2) if is_luma else (7, 3)
+    fx, fy = mvx & frac, mvy & frac
+    ix = x0s + (mvx >> sh)
+    iy = y0s + (mvy >> sh)
+    bank = torch.as_tensor(_filter_bank(is_luma), device=ref.device)
+    hf = bank[fx.long()]                               # (B, taps)
+    vf = bank[fy.long()]
+    patches = _gather_patches(ref, ix - half, iy - half, n + taps - 1)
+    # horizontal: tmp[b, r, c] = sum_t hf[b, t] * patch[b, r, c + t]
+    tmp = sum(hf[:, t, None, None] * patches[:, :, t:t + n]
+              for t in range(taps))
+    shift1 = bit_depth - 8
+    if shift1:
+        tmp = tmp >> shift1
+    # vertical: out[b, r, c] = sum_t vf[b, t] * tmp[b, r + t, c]
+    out = sum(vf[:, t, None, None] * tmp[:, t:t + n, :]
+              for t in range(taps))
+    if raw:
+        return out
+    total_shift = 12 - shift1
+    out = (out + (1 << (total_shift - 1))) >> total_shift
+    return torch.clamp(out, 0, (1 << bit_depth) - 1)
+
+
+def bi_average(acc0: torch.Tensor, acc1: torch.Tensor,
+               bit_depth: int = 8) -> torch.Tensor:
+    """Default bi-prediction combine (clause 8.5.4.2.3.2): the 26-bit
+    accumulators -> 14-bit intermediates -> averaged."""
+    shift = 15 - bit_depth
+    out = ((acc0 >> 6) + (acc1 >> 6) + (1 << (shift - 1))) >> shift
+    return torch.clamp(out, 0, (1 << bit_depth) - 1)
