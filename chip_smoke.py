@@ -40,6 +40,18 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      exact, timed at side 21 beside their bounds (the half-word
      vabsdiff's measured rate); every kernel timing taken 3 times in
      turns, with its spread;
+  2b. me_size_windowed (the reference's windowed ME of one block size):
+     the single search's 8- and 16-block instances (uint8 and uint16,
+     lead 0) against their plain version over the 1088x1920 scan at
+     sides 5-25 (13: radius 6) on random, near-flat and flat windows
+     and at 10 bits the curmax and cur0 extremes; then me_size_windowed
+     at n = 8, 16 and 32 (radius 6, pad 20) on the bench clip's frame 1
+     against frame 0 and on the 10-bit bench clip's, with
+     mc_block_batch_ds at its MVs (luma, cb, cr): 5 gathers and one
+     single search at n per size, every output equal to the same path
+     with the plain gather and search on the card, pred and the MC equal
+     to mc_block_batch at the MVs; each kernel call of the path timed
+     alone on its own arguments beside its bound;
   3. card == CPU: the same clips encoded on the card and on the CPU give
      byte-identical streams (the CPU halves run in a spawned process
      from the start of the run, beside the build, phases 1-2, the card
@@ -829,34 +841,38 @@ def phase_gather(shapes, dtypes=(torch.uint8, torch.uint16), timing=True,
     return agg
 
 
-def _search_case(rng, case, n, nb, side, bits=8):
+def _search_case(gen, case, n, nb, side, bits=8, lead=LEAD, pair=None):
     """Windows, current plane and penalties of one search row at `bits`
-    bits a sample (uint8 windows, uint16 at 10): random samples;
-    near-flat samples in {0, 1} with penalties in {0, 1, 2}, where many
-    candidates tie at different indices; flat samples and penalties,
-    where every candidate ties; or the extremes, current 2^bits - 1
-    against windows of 0 (curmax) and current 0 against windows of
-    2^bits - 1 (cur0), flat penalties: every candidate ties at the
-    largest SAD, which at 10 bits fills each packed 16-bit half of the
-    uint16 searches' sums."""
-    s = n + side - 1 + 2 * LEAD
-    pen_bs = (4 * nb, 4 * nb, nb, nb) if n == 16 else (nb, nb)
+    bits a sample (uint8 windows, uint16 at 10), made on the card from
+    the generator gen: random samples; near-flat samples in {0, 1} with
+    penalties in {0, 1, 2}, where many candidates tie at different
+    indices; flat samples and penalties, where every candidate ties; or
+    the extremes, current 2^bits - 1 against windows of 0 (curmax) and
+    current 0 against windows of 2^bits - 1 (cur0), flat penalties:
+    every candidate ties at the largest SAD, which at 10 bits fills each
+    packed 16-bit half of the uint16 searches' sums. Windows are
+    n + side - 1 + 2 lead wide; pair (default: n == 16) gives the pair
+    search's four penalty tables."""
+    s = n + side - 1 + 2 * lead
+    pair = n == 16 if pair is None else pair
+    pen_bs = (4 * nb, 4 * nb, nb, nb) if pair else (nb, nb)
     top = (1 << bits) - 1
+    i16 = dict(dtype=torch.int16, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
     if case in ("flat", "curmax", "cur0"):
         wv, cv = {"flat": (3, 200), "curmax": (0, top),
                   "cur0": (top, 0)}[case]
-        win = np.full((nb, s, s), wv, np.int16)
-        cur = np.full(SCAN, cv, np.int32)
-        pens = [np.full((side, b), 5, np.int32) for b in pen_bs]
+        win = torch.full((nb, s, s), wv, **i16)
+        cur = torch.full(SCAN, cv, **i32)
+        pens = [torch.full((side, b), 5, **i32) for b in pen_bs]
     else:
         hi, phi = (1 << bits, 400) if case == "random" else (2, 3)
-        win = rng.integers(0, hi, (nb, s, s)).astype(np.int16)
-        cur = rng.integers(0, hi, SCAN).astype(np.int32)
-        pens = [rng.integers(0, phi, (side, b)).astype(np.int32)
+        win = torch.randint(0, hi, (nb, s, s), generator=gen, **i16)
+        cur = torch.randint(0, hi, SCAN, generator=gen, **i32)
+        pens = [torch.randint(0, phi, (side, b), generator=gen, **i32)
                 for b in pen_bs]
-    win_t = torch.from_numpy(win).cuda()
-    win_t = win_t.view(torch.uint16) if bits > 8 else win_t.to(torch.uint8)
-    return [win_t] + [torch.from_numpy(a).cuda() for a in (cur, *pens)]
+    win = win.view(torch.uint16) if bits > 8 else win.to(torch.uint8)
+    return [win, cur, *pens]
 
 
 def phase_search(bits=8, sad_lanes_per_sm=INT32_LANES_PER_SM,
@@ -875,7 +891,8 @@ def phase_search(bits=8, sad_lanes_per_sm=INT32_LANES_PER_SM,
     from x265_tpu_torch.ops.me_win import int_search_pair_windows, \
         int_search_pair_windows_plain, int_search_windows, \
         int_search_windows_plain
-    rng = np.random.default_rng(2025 + bits)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2025 + bits)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_hz = sm_clock_hz()
     lane_ops_per_s = sms * sad_lanes_per_sm * clock_hz
@@ -906,7 +923,7 @@ def phase_search(bits=8, sad_lanes_per_sm=INT32_LANES_PER_SM,
     for name, n, nb in SEARCH_SHAPES:
         by, bx = SCAN[0] // n, SCAN[1] // n
         for row, case, side, path in rows:
-            args = _search_case(rng, case, n, nb, side, bits)
+            args = _search_case(gen, case, n, nb, side, bits)
             if n == 16:
                 def kern(a=args, sd=side):
                     return int_search_pair_windows(*a, by, bx, sd, LEAD)
@@ -993,7 +1010,8 @@ def print_build_report(kernels) -> None:
     """ptxas's figures for every kernel instance, then the SASS of each
     search instance: its SAD instructions (VABSDIFF4 at 1 byte a sample;
     VIMNMX, the packed 16-bit max, at 2) against the current words of
-    its R candidates (per lane: n rows x 4 words x R), and the unrolled
+    its R candidates (per lane: n rows x 4 words x R, 2 words for an
+    8-block at 1 byte a sample), and the unrolled
     walk over the window rows (from the first SAD to the last) counted
     per window row: SADs, IMADs, IADD3s, funnel shifts, shared loads
     and all instructions."""
@@ -1018,7 +1036,7 @@ def print_build_report(kernels) -> None:
             raise AssertionError(f"{fn}: no {sad} in its SASS")
         walk = Counter(base[sads[0]:sads[-1] + 1])
         rows = r + n - 1
-        words = n * 4 * r
+        words = n * min(4, n * kb // 4) * r
         print(json.dumps({
             "sass": name, "sad": sad, "sads": len(sads),
             "current_words": words,
@@ -1772,27 +1790,280 @@ def phase_aq_cutree(first_frames):
     return launches
 
 
+ME_WINDOWED_RADIUS = 6
+ME_WINDOWED_SIDES = (5, 11, 13, 15, 21, 25)   # 13: radius 6
+
+
+class _Recorder:
+    """Stands in for a kernel wrapper of ops.me_win: records each call's
+    arguments and passes it on. Other attributes (the launch counts,
+    which the wrapper moves through its module name) are the wrapper's."""
+
+    def __init__(self, name):
+        from x265_tpu_torch.ops import me_win
+        object.__setattr__(self, "fn", getattr(me_win, name))
+        object.__setattr__(self, "calls", [])
+
+    def __getattr__(self, key):
+        return getattr(self.fn, key)
+
+    def __setattr__(self, key, value):
+        setattr(self.fn, key, value)
+
+    def __call__(self, *args, **kw):
+        self.calls.append((args, kw))
+        return self.fn(*args, **kw)
+
+
+def phase_me_windowed(rates) -> dict:
+    """me_size_windowed (the reference's windowed ME of one block size,
+    x265_tpu/ops/me_win.py:402) at 1080p, its kernels and its MC.
+
+    First the 8- and 16-block single-search instances (int_search_u8 and
+    int_search_u16 at n = 8 and 16, lead 0) against their plain version
+    over the 1088x1920 scan at sides 5-25 on random, near-flat and flat
+    windows, and at 10 bits on the curmax and cur0 extremes, exactly.
+    Then, at 8 bits on the bench clip's frame 1 against frame 0 and at
+    10 bits on synth10_1080p's, coded 1088x1920, radius 6, pad 2r + 8:
+    me_size_windowed for n = 8, 16 and 32 and mc_block_batch_ds at its
+    MVs (luma at n, cb and cr at n / 2), with every count set to 0 just
+    before and read just after: 5 gathers and one single search at n per
+    size, no pair search. Each output must equal the same path with the
+    plain gather and search (on the card), and pred and the luma
+    mc_block_batch_ds must equal mc_block_batch at the returned MVs.
+    Each kernel call of the path is then timed alone on its own
+    arguments (device ms, kernel and plain, per call and per frame of
+    the three sizes) beside its bound. Returns, per bit depth, the
+    launches and the per-instance numbers for the kernels line."""
+    from x265_tpu_torch.enc.encoder import pad_plane
+    from x265_tpu_torch.ops import me_win
+    from x265_tpu_torch.ops.interp import mc_block_batch
+    r = ME_WINDOWED_RADIUS
+    pad = 2 * r + 8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = sm_clock_hz()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2027)
+    # 1. the new instances against the plain version, every side and case
+    for bits in (8, 10):
+        cases = ("random", "near_flat", "flat") + \
+            (("curmax", "cur0") if bits == 10 else ())
+        for n in (8, 16):
+            for side in ME_WINDOWED_SIDES:
+                for case in cases:
+                    args = _search_case(
+                        gen, case, n, (SCAN[0] // n) * (SCAN[1] // n), side,
+                        bits, lead=0, pair=False)
+                    got = me_win.int_search_windows(*args, n, side, 0)
+                    want = me_win.int_search_windows_plain(*args, n, side, 0)
+                    torch.cuda.synchronize()
+                    err = max(int((g.long() - w.long()).abs().max())
+                              for g, w in zip(got, want))
+                    if err or (case in ("flat", "curmax", "cur0") and
+                               int(got[1].abs().max())):
+                        raise AssertionError(
+                            f"int_search n={n} {bits}-bit side {side} "
+                            f"{case}: kernel != plain (max abs err {err}) "
+                            f"or a tie did not pick index 0")
+        print(json.dumps({"me_windowed_search_check": bits, "n": [8, 16],
+                          "sides": ME_WINDOWED_SIDES, "cases": cases,
+                          "max_abs_err": 0}), flush=True)
+
+    out = {}
+    h, w = SCAN
+    for bits in (8, 10):
+        f0, f1 = (synth_1080p(i % 3, shift=2 * i) if bits == 8
+                  else synth10_1080p(i) for i in (0, 1))
+        dt = np.uint8 if bits == 8 else np.int16
+
+        def dev_plane(p, hh, ww):
+            t = torch.from_numpy(pad_plane(p, hh, ww).astype(dt)).cuda()
+            return t.view(torch.uint16) if bits == 10 else t
+        ref_y = dev_plane(f0[0], h, w)
+        ref_c = [dev_plane(c, h // 2, w // 2) for c in f0[1:]]
+        cur = torch.from_numpy(pad_plane(f1[0], h, w).astype(np.int32)) \
+            .cuda()
+        ref_pad = me_win.pad_ref(ref_y, pad)
+        cpads = [me_win.pad_ref(c, pad) for c in ref_c]
+
+        def run():
+            res = {}
+            for n in (8, 16, 32):
+                b = (h // n) * (w // n)
+                seeds = torch.zeros((b, 2), dtype=torch.int32, device="cuda")
+                mvq, cost, pred = me_win.me_size_windowed(
+                    cur, ref_pad, seeds, 20, n, radius=r, bit_depth=bits,
+                    pad=pad)
+                ys = (torch.arange(h // n, dtype=torch.int32,
+                                   device="cuda") * n).repeat_interleave(
+                    w // n)
+                xs = (torch.arange(w // n, dtype=torch.int32,
+                                   device="cuda") * n).repeat(h // n)
+                mcs = [me_win.mc_block_batch_ds(
+                    ref_pad, pad, xs, ys, mvq[:, 0], mvq[:, 1], n,
+                    bit_depth=bits)] + [me_win.mc_block_batch_ds(
+                        cp, pad, xs // 2, ys // 2, mvq[:, 0], mvq[:, 1],
+                        n // 2, is_luma=False, bit_depth=bits)
+                        for cp in cpads]
+                res[n] = (mvq, cost, pred, *mcs, xs, ys)
+            return res
+
+        rec = {k: _Recorder(k) for k in ("gather_windows",
+                                         "int_search_windows")}
+        torch.cuda.synchronize()
+        reset_launches()
+        for k, v in rec.items():
+            setattr(me_win, k, v)
+        t0 = time.perf_counter()
+        try:
+            res = run()
+            torch.cuda.synchronize()
+        finally:
+            for k, v in rec.items():
+                setattr(me_win, k, v.fn)
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        sfx = "u8" if bits == 8 else "u16"
+        want_u16 = 0 if bits == 8 else 1
+        if launches["gather_windows"] != 15 or \
+                launches["u16"]["gather_windows"] != 15 * want_u16 or \
+                launches["int_search_pair"] != 0 or \
+                launches["int_search_single_n"] != {8: 1, 16: 1, 32: 1} or \
+                launches["int_search_single_n_u16"] != \
+                {n: want_u16 for n in (8, 16, 32)}:
+            raise AssertionError(f"me_windowed {bits}-bit: launches "
+                                 f"{launches}, want 15 gathers and one "
+                                 f"single search per size")
+        # the same path with the plain gather and search, on the card
+        me_win.gather_windows = me_win.gather_windows_plain
+        me_win.int_search_windows = me_win.int_search_windows_plain
+        try:
+            plain = run()
+            torch.cuda.synchronize()
+        finally:
+            me_win.gather_windows = rec["gather_windows"].fn
+            me_win.int_search_windows = rec["int_search_windows"].fn
+        err = 0
+        stats = {}
+        for n in (8, 16, 32):
+            mvq, cost, pred, mcy, mcb, mcr, xs, ys = res[n]
+            for a, b in zip(res[n], plain[n]):
+                err = max(err, int((a.long() - b.long()).abs().max()))
+            mc = mc_block_batch(ref_y, xs, ys, mvq[:, 0], mvq[:, 1], n,
+                                bit_depth=bits)
+            if not (torch.equal(mc, pred) and torch.equal(mc, mcy)):
+                raise AssertionError(f"me_windowed {bits}-bit n={n}: pred "
+                                     f"or mc_block_batch_ds != "
+                                     f"mc_block_batch at the MVs")
+            for cp, got_c in zip(ref_c, (mcb, mcr)):
+                if not torch.equal(got_c, mc_block_batch(
+                        cp, xs // 2, ys // 2, mvq[:, 0], mvq[:, 1], n // 2,
+                        is_luma=False, bit_depth=bits)):
+                    raise AssertionError(f"me_windowed {bits}-bit n={n}: "
+                                         f"chroma MC != mc_block_batch")
+            mv = mvq.cpu().numpy()
+            stats[n] = {"blocks": int(mv.shape[0]),
+                        "mean_mvx_qpel": float(mv[:, 0].mean()),
+                        "share_mvx_-8": float((mv[:, 0] == -8).mean()),
+                        "mean_cost": float(cost.double().mean())}
+        if err:
+            raise AssertionError(f"me_windowed {bits}-bit: kernel path != "
+                                 f"plain path, max abs err {err}")
+
+        # each kernel call alone, on the arguments the path gave it
+        rate = INT32_LANES_PER_SM if bits == 8 else rates["sad16_max_imad"]
+        spp = 4 if bits == 8 else RATE_SAMPLES["sad16_max_imad"]
+        lane_ops_per_s = sms * rate * clock_hz
+        calls = []
+        for args, kw in rec["gather_windows"].calls:
+            src, ys_t, xs_t, win = args
+            ar = torch.arange(win, device="cuda")
+            yy = (me_win._start(ys_t, src.shape[0], win).long()[:, None]
+                  + ar)[:, :, None]
+            xx = (me_win._start(xs_t, src.shape[1], win).long()[:, None]
+                  + ar)[:, None, :]
+            src_i = src.view(torch.int16) if bits == 10 else src
+            t = timed({
+                "kernel": lambda a=args: rec["gather_windows"].fn(*a),
+                "plain": lambda a=args: me_win.gather_windows_plain(*a),
+                "library": lambda s_=src_i, y_=yy, x_=xx: s_[y_, x_]})
+            touched = touched_pixels(src.shape[0], src.shape[1], ys_t, xs_t,
+                                     win)
+            nb = ys_t.shape[0]
+            nbytes = touched * src.element_size() + 8 * nb + \
+                nb * win * win * src.element_size()
+            calls.append({"kernel": f"gather_windows_{sfx}", "win": win,
+                          "windows": nb, "ms": t["kernel"][0],
+                          "ms_spread": t["kernel"][1:],
+                          "plain_ms": t["plain"][0],
+                          "library_ms": t["library"][0],
+                          "bound_ms": nbytes / BYTES_PER_S * 1e3,
+                          "bound_by": "bytes", "bytes": nbytes})
+        for args, kw in rec["int_search_windows"].calls:
+            win, cur_p, penx, peny, n, side = args[:6]
+            lead = args[6] if len(args) > 6 else kw.get("lead", 4)
+            t = timed({
+                "kernel": lambda a=args, k_=kw:
+                    rec["int_search_windows"].fn(*a, **k_),
+                "plain": lambda a=args, k_=kw:
+                    me_win.int_search_windows_plain(*a, **k_)})
+            nb = win.shape[0]
+            # windows and the current plane at the sample width (all
+            # the search compares), penalties, results
+            nbytes = (win.numel() + cur_p.numel()) * win.element_size() + \
+                (penx.numel() + peny.numel()) * 4 + 8 * nb
+            px_cand = nb * n * n * side * side
+            ops_ms = px_cand / spp / lane_ops_per_s * 1e3
+            bytes_ms = nbytes / BYTES_PER_S * 1e3
+            calls.append({"kernel": f"int_search_{sfx}", "n": n,
+                          "side": side, "lead": lead, "units": nb,
+                          "ms": t["kernel"][0], "ms_spread": t["kernel"][1:],
+                          "plain_ms": t["plain"][0], "library_ms": None,
+                          "bound_ms": max(ops_ms, bytes_ms),
+                          "bound_by": "operations" if ops_ms >= bytes_ms
+                          else "bytes", "ops_ms": ops_ms,
+                          "bytes_ms": bytes_ms, "bytes": nbytes,
+                          "pixel_candidates": px_cand})
+        for c in calls:
+            print(json.dumps({"me_windowed_call": bits, **c}), flush=True)
+        print(json.dumps({"me_windowed": bits, "coded": [h, w],
+                          "radius": r, "pad": pad, "wall_s": wall_s,
+                          "launches": launches, "max_abs_err": err,
+                          "pred_equals_mc_block_batch": True,
+                          "kernel_path_equals_plain_path": True,
+                          "sizes": stats}), flush=True)
+        out[bits] = {"launches": launches, "calls": calls,
+                     "max_abs_err": err}
+    return out
+
+
 COUNTED = ("gather_windows", "int_search_pair_windows", "int_search_windows")
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch counts (both instances, and the
-    uint16 one alone) to 0."""
+    """Set every kernel wrapper's launch counts (both instances, the
+    uint16 one alone, and the single search's per block size) to 0."""
     from x265_tpu_torch.ops import me_win
     for name in COUNTED:
         fn = getattr(me_win, name)
         fn.launches = fn.launches_u16 = 0
+    s = me_win.int_search_windows
+    for n in s.launches_n:
+        s.launches_n[n] = s.launches_n_u16[n] = 0
 
 
 def read_launches() -> dict:
     """The wrappers' launch counts: the gather and the two searches
     together (as the per-frame checks count them), the pair search
-    alone, and each wrapper's uint16 (Main10) instance alone."""
+    alone, the single search per block size (both instances, and the
+    uint16 one), and each wrapper's uint16 (Main10) instance alone."""
     from x265_tpu_torch.ops import me_win
     g, p, s = (getattr(me_win, name) for name in COUNTED)
     return {"gather_windows": g.launches,
             "int_search": p.launches + s.launches,
             "int_search_pair": p.launches,
+            "int_search_single_n": dict(s.launches_n),
+            "int_search_single_n_u16": dict(s.launches_n_u16),
             "u16": {"gather_windows": g.launches_u16,
                     "int_search_pair": p.launches_u16,
                     "int_search_single": s.launches_u16}}
@@ -2591,6 +2862,88 @@ def phase_decode(elapsed_s: float) -> list:
     return records
 
 
+def kernel_entries(launches, gather, search, me_windowed) -> list:
+    """The kernels line's entries, one per kernel instance, from the
+    launches of every path (read_launches), the gather and search
+    phases' per-path numbers and phase_me_windowed's result."""
+    # each kernel instance: its launches summed over the timed passes of
+    # the paths that run it (uint8: the eight 8-bit paths and the 8-bit
+    # me_size_windowed run; uint16: the Main10 CLI pass and the 10-bit
+    # me_size_windowed run), by path; its times and bound per P frame at
+    # the shapes of one path (ms_of: the bench path for uint8, the
+    # Main10 path for uint16), the 8- and 16-block searches' per call of
+    # the me_size_windowed run
+    u16_paths = ("cli_main10", "me_windowed_10")
+    u8_paths = [p for p in launches if p not in u16_paths]
+
+    def counts(path):
+        n, u16 = launches[path], launches[path]["u16"]
+        pair = n["int_search_pair"]
+        sn, sn16 = n["int_search_single_n"], n["int_search_single_n_u16"]
+        return {"gather_windows_u8": n["gather_windows"] -
+                u16["gather_windows"],
+                "gather_windows_u16": u16["gather_windows"],
+                "int_search_pair_u8": pair - u16["int_search_pair"],
+                "int_search_u8": sn[32] - sn16[32],
+                "int_search_pair_u16": u16["int_search_pair"],
+                "int_search_u16": sn16[32],
+                **{f"int_search_n{k}_{dt}": sn16[k] if dt == "u16"
+                   else sn[k] - sn16[k]
+                   for k in (8, 16) for dt in ("u8", "u16")}}
+
+    by_path = {path: counts(path) for path in launches}
+    entries = []
+    for name, src, replaces, path, nums, bound_by, lib, err in (
+            ("gather_windows_u8", "gather_windows", ":80", "bench",
+             gather["bench"], "bytes", gather["bench"]["library_ms"],
+             max(g["max_abs_err"] for g in gather.values())),
+            ("gather_windows_u16", "gather_windows", ":80", "cli_main10",
+             gather["cli_main10"], "bytes",
+             gather["cli_main10"]["library_ms"],
+             gather["cli_main10"]["max_abs_err"]),
+            *((f"{inst}_{dt}", "int_search", ":308,350",
+               "bench" if dt == "u8" else "cli_main10",
+               search["bench" if dt == "u8" else "cli_main10"]["by"][shape],
+               None, None,
+               search["bench" if dt == "u8" else "cli_main10"]["by"][
+                   f"{shape}_max_abs_err"])
+              for dt in ("u8", "u16")
+              for inst, shape in (("int_search_pair",
+                                   "pair_16region_8block"),
+                                  ("int_search", "single_32block")))):
+        paths = u8_paths if name.endswith("u8") else list(u16_paths)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"x265_tpu_torch/csrc/{src}.cu",
+            "replaces": f"x265_tpu/ops/me_win.py{replaces}",
+            "launches": sum(by_path[p][name] for p in paths),
+            "launches_by_path": {p: by_path[p][name] for p in paths},
+            "ms_of": f"{path} path, per P frame", "max_abs_err": err,
+            "ms": nums["ms"], "plain_ms": nums["plain_ms"],
+            "bound_ms": nums["bound_ms"],
+            "bound_by": bound_by or nums["bound_by"], "library_ms": lib})
+    for bits, dt in ((8, "u8"), (10, "u16")):
+        for k in (8, 16):
+            c = next(c for c in me_windowed[bits]["calls"]
+                     if c["kernel"] == f"int_search_{dt}" and c["n"] == k)
+            name = f"int_search_n{k}_{dt}"
+            paths = u8_paths if dt == "u8" else list(u16_paths)
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": "x265_tpu_torch/csrc/int_search.cu",
+                "replaces": "x265_tpu/ops/me_win.py:308",
+                "launches": sum(by_path[p][name] for p in paths),
+                "launches_by_path": {p: by_path[p][name] for p in paths},
+                "ms_of": f"me_windowed path at 1080p, per call (side "
+                         f"{c['side']}, lead {c['lead']}, {c['units']} "
+                         f"blocks)",
+                "max_abs_err": me_windowed[bits]["max_abs_err"],
+                "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": None})
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("CUDA is not available: this script runs on a GPU only")
@@ -2639,6 +2992,9 @@ def main() -> int:
     search["cli_main10"] = search.pop("main10")
     log("kernel == plain at every main-path shape")
     done("kernels")
+    me_windowed = phase_me_windowed(rates)
+    log("me_size_windowed at 1080p: kernel path == plain path, pred == MC")
+    done("me_windowed")
     cards = phase_card_halves()
     log("card == CPU: the card halves ran")
     done("card_halves")
@@ -2649,7 +3005,8 @@ def main() -> int:
     phase_host_b_1080p()
     log("host B path at 1080p ran")
     done("host_b")
-    launches = {}
+    launches = {f"me_windowed_{bits}": me_windowed[bits]["launches"]
+                for bits in (8, 10)}
     phase_chains_card_equals_cpu()
     log("chains: card == CPU")
     launches["chains"] = phase_chains_1080p(
@@ -2723,58 +3080,9 @@ def main() -> int:
                "int_search": {**{k: search[path][k] for k in
                                  ("ms", "plain_ms", "bound_ms", "bound_by")},
                               "launches": launches[path]["int_search"]}}
-        for path in launches}}), flush=True)
-    # each kernel instance: its launches summed over the timed passes of
-    # the paths that run it (uint8: the eight 8-bit paths; uint16: the
-    # Main10 CLI pass), by path; its times and bound per P frame at
-    # the shapes of one path (ms_of: the bench path for uint8, the
-    # Main10 path for uint16)
-    u8_paths = [p for p in launches if p != "cli_main10"]
-
-    def counts(path):
-        n, u16 = launches[path], launches[path]["u16"]
-        pair = n["int_search_pair"]
-        return {"gather_windows_u8": n["gather_windows"] -
-                u16["gather_windows"],
-                "gather_windows_u16": u16["gather_windows"],
-                "int_search_pair_u8": pair - u16["int_search_pair"],
-                "int_search_u8": n["int_search"] - pair -
-                u16["int_search_single"],
-                "int_search_pair_u16": u16["int_search_pair"],
-                "int_search_u16": u16["int_search_single"]}
-
-    by_path = {path: counts(path) for path in launches}
-    entries = []
-    for name, src, replaces, path, nums, bound_by, lib, err in (
-            ("gather_windows_u8", "gather_windows", ":80", "bench",
-             gather["bench"], "bytes", gather["bench"]["library_ms"],
-             max(g["max_abs_err"] for g in gather.values())),
-            ("gather_windows_u16", "gather_windows", ":80", "cli_main10",
-             gather["cli_main10"], "bytes",
-             gather["cli_main10"]["library_ms"],
-             gather["cli_main10"]["max_abs_err"]),
-            *((f"{inst}_{dt}", "int_search", ":308,350",
-               "bench" if dt == "u8" else "cli_main10",
-               search["bench" if dt == "u8" else "cli_main10"]["by"][shape],
-               None, None,
-               search["bench" if dt == "u8" else "cli_main10"]["by"][
-                   f"{shape}_max_abs_err"])
-              for dt in ("u8", "u16")
-              for inst, shape in (("int_search_pair",
-                                   "pair_16region_8block"),
-                                  ("int_search", "single_32block")))):
-        paths = u8_paths if name.endswith("u8") else ["cli_main10"]
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": f"x265_tpu_torch/csrc/{src}.cu",
-            "replaces": f"x265_tpu/ops/me_win.py{replaces}",
-            "launches": sum(by_path[p][name] for p in paths),
-            "launches_by_path": {p: by_path[p][name] for p in paths},
-            "ms_of": f"{path} path, per P frame", "max_abs_err": err,
-            "ms": nums["ms"], "plain_ms": nums["plain_ms"],
-            "bound_ms": nums["bound_ms"],
-            "bound_by": bound_by or nums["bound_by"], "library_ms": lib})
-    print(json.dumps({"kernels": entries}), flush=True)
+        for path in launches if path in gather}}), flush=True)
+    print(json.dumps({"kernels": kernel_entries(launches, gather, search,
+                                                 me_windowed)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

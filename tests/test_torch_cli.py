@@ -401,6 +401,80 @@ def test_cli_qpfile_zones_chunks_and_hdr10plus(tmp_path):
     assert t35 == [payloads[1], payloads[2], payloads[3]]
 
 
+def _dup_clip():
+    """_clip(4) with frame 2 repeated: a duplicate for --frame-dup."""
+    frames = _clip(4)
+    return frames[:3] + [frames[2]] + frames[3:]
+
+
+# the CLI flags no other test holds against the reference (ROADMAP item
+# 24): (extra argv, frames, coded frames at least one of which must be
+# the case's kind, or None)
+CLI_FLAGS = {
+    "hist_scenecut": (["--hist-scenecut"], lambda: _clip(5, cut=3), "I"),
+    "all_intra": (["--all-intra"], lambda: _clip(3), "I"),
+    "lossless": (["--lossless"], lambda: _clip(2), "I"),
+    "aq_mode": (["--aq-mode", "2"], lambda: _clip(4), None),
+    # SAO off: the duplicate codes no SAO under an SAO slice header
+    # (ROADMAP queue 3)
+    "frame_dup": (["--frame-dup", "--no-sao"], _dup_clip, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLI_FLAGS))
+def test_cli_flags_match_reference_cli(case, tmp_path):
+    """--hist-scenecut (a scene cut at frame 3), --all-intra, --lossless,
+    --aq-mode 2 and --frame-dup through both CLIs under --preset
+    ultrafast --tune zerolatency with the hash (ROADMAP item 24):
+    byte-identical streams,
+    csv rows (but wall_s) and recon, and the port's decoder decodes the
+    stream to the recon. psy-rd 0 as in
+    test_cli_stream_matches_reference_cli, whose reference programs the
+    cases then share."""
+    from x265_tpu_torch.decoder import decode_annexb as port_decode
+    extra, clip, kind = CLI_FLAGS[case]
+    frames = clip()
+    src = _write_y4m(tmp_path / "in.y4m", frames)
+    out = {}
+    for tag in ("ref", "port"):
+        d = tmp_path / tag
+        d.mkdir()
+        argv = [src, *FAST, "--param", "psy_rd=0", "--hash", "1", *extra,
+                "--no-progress", "-o",
+                str(d / "out.hevc"), "--csv", str(d / "s.csv"), "--recon",
+                str(d / "rec.y4m")]
+        assert (ref_cli_main(argv) if tag == "ref"
+                else cli_main(argv, device="cpu")) == 0
+        out[tag] = d
+    port, ref = out["port"], out["ref"]
+    stream = (port / "out.hevc").read_bytes()
+    assert stream == (ref / "out.hevc").read_bytes()
+    rows = _csv(port / "s.csv")
+    assert rows == _csv(ref / "s.csv")
+    assert (port / "rec.y4m").read_bytes() == (ref / "rec.y4m").read_bytes()
+    rec = list(Y4MReader(str(port / "rec.y4m")))
+    dec = port_decode(stream)
+    assert len(dec) == len(rec) == len(rows) - 1 == len(frames)
+    # zerolatency: decode order is display order
+    for i, (dd, r) in enumerate(zip(dec, rec)):
+        for k, p in zip(("y", "cb", "cr"), r):
+            np.testing.assert_array_equal(getattr(dd, k), p,
+                                          err_msg=f"frame {i} {k}")
+    types = [r[rows[0].index("type")] for r in rows[1:]]
+    if kind:
+        assert kind in types[1:], types
+    if case == "frame_dup":
+        # frame 3 repeats frame 2: an all-skip copy of its recon
+        head = rows[0]
+        f2, f3 = rows[3], rows[4]
+        assert f3[head.index("psnr_y")] == f2[head.index("psnr_y")]
+        assert 2 * int(f3[head.index("bits")]) < int(f2[head.index("bits")])
+    if case == "lossless":
+        for r, f in zip(rec, frames):
+            for a, b in zip(r, f):
+                np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("argv,item", [
     ([], 28),
     (["--input-res", "96x64", "--input-depth", "10", "--preset",

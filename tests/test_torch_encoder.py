@@ -85,6 +85,49 @@ def test_ippp_stream_matches_reference(h, w):
                                           err_msg=f"frame {i} {k}")
 
 
+@pytest.mark.parametrize("tune", [None, "grain", "fastdecode"],
+                         ids=["superfast", "superfast_grain",
+                              "superfast_fastdecode"])
+def test_preset_and_tune_streams_match_reference(tune):
+    """The options no other test holds (ROADMAP item 26): the superfast
+    row (me_range 3, TMVP with one reference, merge 2, no SAO), alone
+    and under the grain tune (psy-rd 4.0, no sign hiding, no AQ) and
+    the fastdecode tune (no deblock, no SAO, no sign hiding), each with
+    zerolatency, as x265's --preset superfast --tune ... sets them: 1 I
+    (QP 29) + 2 P in one chunk at 64x96, byte-identical to the reference
+    and decoded by the port's decoder to the port's recon. The I frame
+    takes the host-recon path (its bytes are the device path's: the
+    reference's encode_hier_gop relies on it), so the three cases share
+    the reference's one analysis program instead of tracing three
+    wavefronts."""
+    from x265_tpu_torch.decoder import decode_annexb as port_decode
+    frames = _clip(3)
+    h, w = frames[0][0].shape
+    rcfg = RefConfig(width=w, height=h, qp=32)
+    rcfg.apply_preset("superfast")
+    for t in ((tune,) if tune else ()) + ("zerolatency",):
+        rcfg.apply_tune(t)
+    assert (rcfg.me_range, rcfg.tmvp, rcfg.num_refs) == (3, True, 1)
+    res = []
+    for enc in (RefEncoder(rcfg),
+                IntraEncoder(config_from_dict(dataclasses.asdict(rcfg)),
+                             device="cpu")):
+        r0 = enc.encode_frame(*frames[0], qp=29, use_device_recon=False)
+        enc.ref = r0.recon if isinstance(enc, RefEncoder) else \
+            r0.device_ref
+        enc.poc = 0
+        res.append([r0] + enc.encode_pgop_pipelined(frames[1:], chunk=2,
+                                                    need_recon=True))
+    want, got = res
+    assert [r.bitstream for r in got] == [r.bitstream for r in want]
+    dec = port_decode(b"".join(r.bitstream for r in got))
+    assert len(dec) == len(got) == 3
+    for i, (d, r) in enumerate(zip(dec, got)):
+        for k in ("y", "cb", "cr"):
+            np.testing.assert_array_equal(getattr(d, k), getattr(r.recon, k),
+                                          err_msg=f"frame {i} {k}")
+
+
 FIELDS = ("depth8", "mv8", "coeff_y", "coeff_cb", "coeff_cr", "intra8",
           "mode8", "tusplit8", "ref8", "sao_params", "qp_map", "max_merge")
 
@@ -164,8 +207,9 @@ def test_package_imports_neither_jax_nor_reference():
     io/, bitstream/sei.py, bitstream/hdr10plus.py, ops/metrics.py,
     ops/scaler.py and version.py among them, and the validation decoder
     decoder/, the Python slice coder's bitstream/syntax.py, cabac.py and
-    common/mv_derive.py), and chip_smoke.py, import without pulling JAX
-    or the reference package into the process."""
+    common/mv_derive.py, and the compact CG-row download ops/compact.py),
+    and chip_smoke.py, import without pulling JAX or the reference
+    package into the process."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import x265_tpu_torch\n"
@@ -179,7 +223,7 @@ def test_package_imports_neither_jax_nor_reference():
         "          'bitstream.syntax', 'bitstream.cabac',\n"
         "          'bitstream.bitreader', 'common.mv_derive',\n"
         "          'enc.bi_frame', 'ops.me', 'ops.interp', 'parallel',\n"
-        "          'parallel.gop_sharding'):\n"
+        "          'parallel.gop_sharding', 'ops.compact'):\n"
         "    assert 'x265_tpu_torch.' + n in names, n\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"

@@ -100,17 +100,18 @@ def test_gather_kernel_odd_windows_and_unaligned_plane_on_gpu(dtype):
                            else want), win
 
 
-def _search_inputs(case, h, w, n, side, seed, bits=8):
+def _search_inputs(case, h, w, n, side, seed, bits=8, lead=4):
     """Windows for the n-blocks of an h x w plane (n = 16: the 16-region
-    windows of the pair search), the int32 current plane and penalties,
-    at `bits` bits a sample (windows uint8, or uint16 at 10). Cases:
+    windows of the pair search), side + n - 1 + 2 lead wide, the int32
+    current plane and penalties, at `bits` bits a sample (windows uint8,
+    or uint16 at 10). Cases:
     random samples; near-flat samples in {0, 1} with penalties in
     {0, 1, 2} (ties at many indices); flat (every candidate ties); and
     the extremes, current 255 (curmax: 2^bits - 1) against window 0 and
     current 0 against window 255 (cur0 at 10 bits: 1023), with the
     largest SADs."""
     rng = np.random.default_rng(seed)
-    s = n + side - 1 + 8
+    s = n + side - 1 + 2 * lead
     nb = (h // n) * (w // n)
     top = (1 << bits) - 1
     if case == "random":
@@ -241,6 +242,46 @@ def test_int_search_u16_kernels_match_plain_on_gpu(case, me_range, plane):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if case in ("flat", "curmax", "cur0"):
         assert int(got[1].abs().max()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ("random", "near_flat", "flat", "curmax",
+                                  "cur0"))
+@pytest.mark.parametrize("bits", (8, 10))
+@pytest.mark.parametrize("n", (8, 16))
+def test_int_search_8_and_16_blocks_match_plain_on_gpu(case, bits, n):
+    """The single search's 8- and 16-block instances (int_search_u8 and
+    int_search_u16 at n = 8 and 16, me_size_windowed's) against the plain
+    version, exactly, on both planes, at sides 5-25 (13: me_size_windowed's
+    default radius 6) and leads 0 (its windows) and 4. Each launch moves
+    the wrapper's count, its uint16 count and its count for n by one;
+    ties pick the lowest index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    fn = port.int_search_windows
+    for plane in ("small", "strided"):
+        h, w = SEARCH_PLANES[plane][1]
+        for side in (5, 11, 13, 15, 21, 25):
+            for lead in (0, 4):
+                win, cur, pen = _search_inputs(case, h, w, n, side,
+                                               seed=side + lead, bits=bits,
+                                               lead=lead)
+                penx, peny = _pens(pen, pen.shape[1], side)
+                before = (fn.launches, fn.launches_u16, fn.launches_n[n],
+                          fn.launches_n_u16[n])
+                got = fn(win, cur, penx, peny, n, side, lead)
+                u16 = int(bits > 8)
+                assert (fn.launches, fn.launches_u16, fn.launches_n[n],
+                        fn.launches_n_u16[n]) == (
+                    before[0] + 1, before[1] + u16, before[2] + 1,
+                    before[3] + u16)
+                want = port.int_search_windows_plain(win, cur, penx, peny,
+                                                     n, side, lead)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]) and \
+                    torch.equal(got[1], want[1]), (plane, side, lead)
+                if case in ("flat", "curmax", "cur0"):
+                    assert int(got[1].abs().max()) == 0
 
 
 @pytest.mark.gpu

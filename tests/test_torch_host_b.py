@@ -5,7 +5,7 @@ Piece by piece: the batched block MC (mc_block_batch raw and rounded,
 bi_average) at 8 and 10 bits, luma and chroma, every fractional phase,
 n = 4-32; the MV bit proxy over every |v| the searches reach; the
 dense search (coarse_search, refine_size, motion_search_frame) on
-tests/test_me.py's inputs and shapes; encode_b_frame_arrays, every
+tests/test_me.py's two inputs, both at 64x96; encode_b_frame_arrays, every
 FrameBSyntax field and the recon, with host and device references.
 Whole streams: encode_bgop on tests/test_bframes.py's three
 configurations and clips (96x64 deblock off and on, 64x64 with deblock,
@@ -35,6 +35,7 @@ from chip_smoke import to_10bit
 from test_inter_e2e import moving_sequence
 from test_me import _textured
 from test_torch_main10 import refuse_uint16_tensor_reads  # noqa: F401
+from test_torch_transforms import JitRef
 from x265_tpu.bitstream.syntax import FrameBSyntax as RefBSyntax
 from x265_tpu.common.params import EncoderConfig as RefConfig
 from x265_tpu.common.tables import lambda_from_qp
@@ -116,7 +117,7 @@ def test_mc_block_batch_matches_reference(bd, is_luma, raw):
     rng = np.random.default_rng(bd * 4 + 2 * is_luma + raw)
     for n in (4, 8, 16, 32):
         args = _mc_inputs(rng, bd, is_luma, n)
-        want = ref_interp.mc_block_batch(
+        want = JitRef(ref_interp).mc_block_batch(
             *map(jnp.asarray, args), n, is_luma=is_luma, bit_depth=bd,
             raw=raw)
         got = port_interp.mc_block_batch(
@@ -151,10 +152,12 @@ def test_mv_bits_matches_reference():
 
 
 def _me_case(case):
-    """tests/test_me.py's two inputs: a global translation at 96x128 and
-    a static picture at 64x96, with their QPs."""
+    """tests/test_me.py's two inputs, a global translation and a static
+    picture, with their QPs, both at 64x96 (the reference traces its
+    unrolled search programs once per shape, for 5-10 s each, so one
+    shape serves both cases)."""
     if case == "translation":
-        h, w = 96, 128
+        h, w = 64, 96
         ref = _textured(h + 32, w + 32, 3)
         cur = ref[22:22 + h, 6:6 + w]
         return cur, ref[16:16 + h, 16:16 + w], 32
@@ -176,8 +179,8 @@ ME_CASES = ["translation", "static"]
 def test_coarse_search_matches_reference(case):
     cur, ref, _ = _me_case(case)
     want = ref_me.coarse_search(
-        ref_me._downsample4(jnp.asarray(cur, jnp.int32)),
-        ref_me._downsample4(jnp.asarray(ref, jnp.int32)))
+        JitRef(ref_me)._downsample4(jnp.asarray(cur, jnp.int32)),
+        JitRef(ref_me)._downsample4(jnp.asarray(ref, jnp.int32)))
     t = torch.from_numpy
     got = port_me.coarse_search(port_me._downsample4(t(cur)),
                                 port_me._downsample4(t(ref)))

@@ -15,6 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_main10 import _tensor_indexed
 from x265_tpu.enc import pgop_tpu as ref_pgop
 from x265_tpu.ops import me_win as ref
 from x265_tpu_torch.enc import pgop_gpu as port_pgop
@@ -150,6 +151,168 @@ def test_me_all_sizes_and_chroma_preds(weighted):
             np.testing.assert_array_equal(np.asarray(jc[n][k]),
                                           tc[n][k].numpy(),
                                           err_msg=f"chroma n={n} plane {k}")
+
+
+def _me_plane(h, w, seed, bits):
+    """The reference's test_me_win.py content (a diagonal ramp with
+    noise), lifted to 10 bits with 2 more low bits of noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    p = ((xx * 7 + yy * 3 + (xx * yy >> 6)) % 256).astype(np.int32)
+    p = np.clip(p + rng.integers(-20, 20, (h, w)), 0, 255)
+    return p if bits == 8 else p * 4 + rng.integers(0, 4, (h, w))
+
+
+@pytest.fixture
+def refuse_uint16_reads(monkeypatch):
+    """A tensor-indexed read of a uint16 tensor raises, as on the card:
+    tests/test_torch_main10.py's refuse_uint16_tensor_reads for one
+    test."""
+    real = torch.Tensor.__getitem__
+
+    def getitem(self, idx):
+        if self.dtype == torch.uint16 and _tensor_indexed(idx):
+            raise RuntimeError("tensor-indexed read of a uint16 tensor")
+        return real(self, idx)
+
+    monkeypatch.setattr(torch.Tensor, "__getitem__", getitem)
+
+
+@pytest.mark.parametrize("n", (8, 16, 32))
+@pytest.mark.parametrize("bits", (8, 10))
+def test_me_size_windowed_matches_reference(bits, n, refuse_uint16_reads):
+    """me_size_windowed at the reference's test shape (64x96, pad 20,
+    lam 20, radius 6): MVs, costs and predictions equal the reference's,
+    exactly, at 8 and 10 bits, on seeds that reach the clamps; pred is
+    the port's mc_block_batch at the returned MV; the int search's kernel
+    arguments are the 8/16/32-block ones (lead 0, side 13). Integers
+    throughout."""
+    from x265_tpu_torch.ops.interp import mc_block_batch
+    h, w, pad, lam = 64, 96, 20, 20
+    cur = np.roll(_me_plane(h, w, 2, bits), 3, axis=1).astype(np.int32)
+    ref_y = _me_plane(h, w, 2, bits)
+    dt = np.uint8 if bits == 8 else np.uint16
+    b = (h // n) * (w // n)
+    seeds = np.random.default_rng(n + bits).integers(-8, 9, (b, 2))
+    seeds[:3] = [[-60, 0], [0, 70], [40, -40]]          # clamped
+    seeds = seeds.astype(np.int32)
+    ref_pad = np.pad(ref_y.astype(dt), pad, mode="edge")
+    want = jax.jit(ref.me_size_windowed,
+                   static_argnames=("n", "radius", "bit_depth", "pad"))(
+        jnp.asarray(cur), jnp.asarray(ref_pad), jnp.asarray(seeds),
+        jnp.int32(lam), n=n, pad=pad, bit_depth=bits)
+    tpad = torch.from_numpy(ref_pad.astype(np.int16) if bits == 10
+                            else ref_pad)
+    tpad = tpad.view(torch.uint16) if bits == 10 else tpad
+    got = port.me_size_windowed(torch.from_numpy(cur), tpad,
+                                torch.from_numpy(seeds), lam, n, pad=pad,
+                                bit_depth=bits)
+    for k, (wt, g) in enumerate(zip(want, got)):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(np.asarray(wt), g.numpy(),
+                                      err_msg=f"output {k}")
+    y0s = torch.arange(h // n, dtype=torch.int32).repeat_interleave(
+        w // n) * n
+    x0s = torch.arange(w // n, dtype=torch.int32).repeat(h // n) * n
+    plane = tpad[pad:pad + h, pad:pad + w]
+    mc = mc_block_batch(plane, x0s, y0s, got[0][:, 0], got[0][:, 1], n,
+                        bit_depth=bits)
+    assert torch.equal(mc, got[2])
+
+
+def test_me_size_windowed_penalty_is_the_float_form():
+    """The integer bit length me_size_windowed's penalties use equals the
+    reference's float32 2 ceil(log2(|v| + 1)) + 1 for every quarter-pel
+    |v| its padded planes admit up to a 4096-wide frame, powers of two
+    and their neighbours included."""
+    from x265_tpu_torch.ops.me import bitlen
+    v = np.arange(0, 4 * (4096 + 2 * 32 + 8) + 1, dtype=np.int32)
+    want = np.asarray(
+        2 * jnp.ceil(jnp.log2(jnp.asarray(v).astype(jnp.float32) + 1.0)) + 1)
+    got = 2 * bitlen(torch.from_numpy(v)) + 1
+    np.testing.assert_array_equal(want.astype(np.int32), got.numpy())
+
+
+@pytest.mark.parametrize("bits", (8, 10))
+def test_interp_ext_and_gather_zero_match_reference(bits,
+                                                    refuse_uint16_reads):
+    """interp_ext on block-major sub-pel windows (per-block quarter-pel
+    offsets in [-3, 3]) and gather_zero equal the reference's, and
+    interp_ext equals the port's mc_block_batch at mv = 4 mvi + d (the
+    contract both state)."""
+    from x265_tpu_torch.ops.interp import mc_block_batch
+    h, w, n = 32, 64, 16
+    plane = _me_plane(h, w, 5, bits)
+    dt = np.uint8 if bits == 8 else np.uint16
+    by, bx = h // n, w // n
+    b = by * bx
+    rng = np.random.default_rng(9)
+    mvi = rng.integers(-3, 3, (b, 2)).astype(np.int32)
+    dq = rng.integers(-3, 4, (b, 2)).astype(np.int32)
+    y0 = (np.repeat(np.arange(by) * n, bx)).astype(np.int32)
+    x0 = (np.tile(np.arange(bx) * n, by)).astype(np.int32)
+    swin = np.asarray(ref.gather_windows(
+        jnp.asarray(plane), jnp.asarray(y0 + mvi[:, 1] - 4),
+        jnp.asarray(x0 + mvi[:, 0] - 4), n + 8)).astype(dt)
+    want = jax.jit(ref.interp_ext, static_argnames=("n", "bit_depth"))(
+        jnp.asarray(swin.astype(np.int32)), jnp.asarray(dq[:, 0] + 3),
+        jnp.asarray(dq[:, 1] + 3), n=n, bit_depth=bits)
+    tw = torch.from_numpy(swin.astype(np.int16) if bits == 10 else swin)
+    tw = tw.view(torch.uint16) if bits == 10 else tw
+    got = port.interp_ext(tw, torch.from_numpy(dq[:, 0] + 3),
+                          torch.from_numpy(dq[:, 1] + 3), n, bits)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    tplane = torch.from_numpy(plane.astype(np.int16 if bits == 10 else dt))
+    tplane = tplane.view(torch.uint16) if bits == 10 else tplane
+    mc = mc_block_batch(tplane, torch.from_numpy(x0), torch.from_numpy(y0),
+                        torch.from_numpy(mvi[:, 0] * 4 + dq[:, 0]),
+                        torch.from_numpy(mvi[:, 1] * 4 + dq[:, 1]), n,
+                        bit_depth=bits)
+    assert torch.equal(mc, got)
+    wz = ref.gather_zero(jnp.asarray(plane), jnp.asarray(y0),
+                         jnp.asarray(x0), n)
+    gz = port.gather_zero(tplane, torch.from_numpy(y0), torch.from_numpy(x0),
+                          n)
+    np.testing.assert_array_equal(np.asarray(wz), gz.numpy())
+
+
+@pytest.mark.parametrize("bits", (8, 10))
+@pytest.mark.parametrize("is_luma,n", [(True, 8), (True, 16), (False, 4),
+                                       (False, 8)])
+def test_mc_block_batch_ds_matches_reference(is_luma, n, bits,
+                                             refuse_uint16_reads):
+    """mc_block_batch_ds (the patches through the window gather) equals
+    the reference's and the port's mc_block_batch, luma and chroma, at 8
+    and 10 bits, on MVs up to 5 samples with every fractional phase."""
+    from x265_tpu_torch.ops.interp import mc_block_batch
+    h, w, pad = 48, 64, 16
+    plane = _me_plane(h, w, 4, bits)
+    dt = np.uint8 if bits == 8 else np.uint16
+    by, bx = h // n, w // n
+    b = by * bx
+    rng = np.random.default_rng(11 + n)
+    unit = 4 if is_luma else 8
+    mvx = rng.integers(-5 * unit, 5 * unit, b).astype(np.int32)
+    mvy = rng.integers(-5 * unit, 5 * unit, b).astype(np.int32)
+    y0 = (np.repeat(np.arange(by) * n, bx)).astype(np.int32)
+    x0 = (np.tile(np.arange(bx) * n, by)).astype(np.int32)
+    ref_pad = np.pad(plane.astype(dt), pad, mode="edge")
+    want = jax.jit(ref.mc_block_batch_ds,
+                   static_argnames=("pad", "n", "is_luma", "bit_depth"))(
+        jnp.asarray(ref_pad), pad, jnp.asarray(x0), jnp.asarray(y0),
+        jnp.asarray(mvx), jnp.asarray(mvy), n, is_luma=is_luma,
+        bit_depth=bits)
+    tpad = torch.from_numpy(ref_pad.astype(np.int16) if bits == 10
+                            else ref_pad)
+    tpad = tpad.view(torch.uint16) if bits == 10 else tpad
+    args = (torch.from_numpy(x0), torch.from_numpy(y0),
+            torch.from_numpy(mvx), torch.from_numpy(mvy), n)
+    got = port.mc_block_batch_ds(tpad, pad, *args, is_luma=is_luma,
+                                 bit_depth=bits)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    mc = mc_block_batch(tpad[pad:pad + h, pad:pad + w], *args,
+                        is_luma=is_luma, bit_depth=bits)
+    assert torch.equal(mc, got)
 
 
 def test_int_search_tie_keeps_first_candidate():
@@ -321,7 +484,7 @@ def test_int_search_wrappers_reject_bad_inputs():
         lambda: pair(w16=w16.to(torch.int16)),       # not a sample type
         lambda: single(w=w32[:5]),
         lambda: single(n=24, cur_plane=torch.zeros((48, 96), dtype=torch.int32)),
-        lambda: single(n=16),                        # 32-blocks only
+        lambda: single(n=16),                        # 24 16-blocks, not 6
         lambda: single(peny=p32[:20]),
         lambda: single(w=w32.reshape(6, 3600)),
     ]

@@ -6,12 +6,45 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
-from x265_tpu.ops import transforms as ref
+from x265_tpu.ops import transforms as _ref
 from x265_tpu_torch.ops import transforms as port
 
 torch.set_num_threads(2)
+
+
+class JitRef:
+    """A reference module whose functions run as one jitted program per
+    call when they get a JAX array: the arrays are traced, every other
+    argument is a constant of the program, as the eager call sees it.
+    One compile replaces the eager call's dozens of per-operation
+    compiles; for integer functions jitted and eager give the same
+    values. A call without JAX arrays (the numpy forms) runs as is."""
+
+    def __init__(self, module):
+        self._module = module
+
+    def __getattr__(self, name):
+        fn = getattr(self._module, name)
+        if not callable(fn):
+            return fn
+
+        def call(*args, **kw):
+            traced = [isinstance(a, jax.Array) for a in args]
+            if not any(traced):
+                return fn(*args, **kw)
+
+            def prog(*xs):
+                it = iter(xs)
+                return fn(*(next(it) if t else a
+                            for a, t in zip(args, traced)), **kw)
+            return jax.jit(prog)(*(a for a, t in zip(args, traced) if t))
+        return call
+
+
+ref = JitRef(_ref)
 
 SIZES = (4, 8, 16, 32)
 

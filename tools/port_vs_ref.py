@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The GPU port against the JAX reference on the CPU, frame for frame:
 
-    python3 tools/port_vs_ref.py [--size HxW]
+    python3 tools/port_vs_ref.py [--size HxW] [--bits 8|10]
         [--legs bench,fast,medium,slow,placebo,fast_b,aq_cutree]
 
 Encodes the first frames of chip_smoke.py's bench clip (cropped to
@@ -17,7 +17,11 @@ every syntax field and the 8x8 inter leaf cost inter_c8 of every P and
 B frame (read from both packages' _rd_depth_decision as they run), and
 in the aq_cutree leg the lookahead's QP maps entry by entry. Prints
 one JSON line per leg (differing frames, bytes, syntax fields, QP-map
-entries and inter_c8 cells, seconds) and exits 1 if any leg differs. Needs JAX: run it where the reference runs, not on
+entries and inter_c8 cells, seconds) and exits 1 if any leg differs.
+--bits 10 runs the same legs on the clip lifted to 10 bits as
+chip_smoke.synth10_1080p lifts it (chip_smoke.to_10bit) and with SAO
+off, which neither package codes at 10 bits (ROADMAP item 31). Needs
+JAX: run it where the reference runs, not on
 the GPU machine. The reference traces its programs anew for each size
 and configuration (minutes each at 1080p, and tens of GiB of host
 memory).
@@ -43,16 +47,18 @@ LEGS = ("bench", "fast", "medium", "slow", "placebo", "fast_b",
         "aq_cutree")
 
 
-def _config(leg, h, w, RefConfig):
-    cfg = RefConfig(width=w, height=h, qp=32)
+def _config(leg, h, w, RefConfig, bits=8):
     if leg == "bench":
         return RefConfig(width=w, height=h, qp=32, deblock=True, sao=False,
-                         me_range=10)
+                         me_range=10, bit_depth=bits)
+    cfg = RefConfig(width=w, height=h, qp=32, bit_depth=bits)
     cfg.apply_preset({"fast_b": "fast", "aq_cutree": "medium"}.get(leg, leg))
     if leg != "fast_b":
         cfg.apply_tune("zerolatency")
     if leg == "aq_cutree":
         cfg.aq_mode, cfg.cutree = 2, True
+    if bits > 8:
+        cfg.sao = False
     return cfg
 
 
@@ -91,14 +97,18 @@ def _differs(a, b):
     return not np.array_equal(np.asarray(a), np.asarray(b))
 
 
-def run_leg(leg, h, w):
+def run_leg(leg, h, w, bits=8):
     import chip_smoke
     from x265_tpu.common.params import EncoderConfig as RefConfig
     from x265_tpu.enc import IntraEncoder as RefEncoder
     from x265_tpu_torch.convert import config_from_dict
     from x265_tpu_torch.enc import IntraEncoder
     frames = chip_smoke.full_size_clip(5 if leg == "fast_b" else 3, (h, w))
-    rcfg = _config(leg, h, w, RefConfig)
+    if bits > 8:
+        # frame i of the bench clip is synth_1080p(i % 3, shift=2 i)
+        frames = [chip_smoke.to_10bit(f, i % 3, shift=2 * i)
+                  for i, f in enumerate(frames)]
+    rcfg = _config(leg, h, w, RefConfig, bits)
     out, maps = {}, {}
     for side, enc in (("ref", RefEncoder(rcfg)),
                       ("port", IntraEncoder(config_from_dict(
@@ -134,7 +144,8 @@ def run_leg(leg, h, w):
                        (maps["ref"] != maps["port"]).sum()),
                    "qp_map_min_max": [int(maps["port"].min()),
                                       int(maps["port"].max())]}
-    return {"leg": leg, "size": f"{h}x{w}", "frames": len(ref), **qp_maps,
+    return {"leg": leg, "size": f"{h}x{w}", "bits": bits,
+            "frames": len(ref), **qp_maps,
             "ref_bytes": sum(len(r.bitstream) for r in ref),
             "port_bytes": sum(len(r.bitstream) for r in port),
             "frames_differ": frames_differ,
@@ -149,6 +160,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", default="1080x1920")
     ap.add_argument("--legs", default=",".join(LEGS))
+    ap.add_argument("--bits", type=int, choices=(8, 10), default=8)
     args = ap.parse_args()
     h, w = (int(v) for v in args.size.split("x"))
     import jax
@@ -163,7 +175,7 @@ def main() -> int:
         c8_ref.clear()
         c8_port.clear()
         t0 = time.perf_counter()
-        rec = run_leg(leg, h, w)
+        rec = run_leg(leg, h, w, args.bits)
         jax.effects_barrier()
         cells = [int((np.asarray(a, np.float32).view(np.int32) !=
                       np.asarray(b, np.float32).view(np.int32)).sum())

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .cabac import init_context
+from .cabac import ContextSet, init_context
 
 # (name, count, [B-row, P-row, I-row]) — 154 is the spec's "unused" value
 _GROUPS: list[tuple[str, int, list[list[int]]]] = [
@@ -106,6 +106,13 @@ for _name, _cnt, _vals in _GROUPS:
 
 # Precomputed packed init states for all QPs, used to avoid per-slice loops.
 _STATE_CACHE: dict[tuple[int, int], np.ndarray] = {}
+
+
+def make_contexts(slice_type: int, qp: int) -> ContextSet:
+    """Fresh context set for a slice (clause 9.3.2.2)."""
+    ctx = ContextSet(NUM_CONTEXTS)
+    ctx.init_from(qp, INIT_VALUES[slice_type])
+    return ctx
 
 
 def init_states(slice_type: int, qp: int) -> np.ndarray:

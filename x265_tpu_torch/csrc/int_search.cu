@@ -111,6 +111,16 @@
 // each of its R candidates. A 32-block SAD at 10 bits stays under 2^20,
 // so the (1 << 30, 0) start key and the 64-bit keys hold as at 8 bits.
 //
+// The single search runs 8-, 16- and 32-blocks (N = 8, 16, 32; the
+// 8- and 16-block instances serve me_size_windowed, whose windows have
+// lead 0). A lane takes at most 4 words of a current row: a 16-block
+// row is 1 lane at 8 bits and 2 at 10, an 8-block row 1 lane of 2
+// words at 8 bits (8 bytes, 3 window words and 2 funnel shifts a row)
+// and 1 lane of 4 words at 10. The packed 16-bit halves hold as for the
+// 32-block: the sums are unpacked every N / 2 rows, so a half holds 4
+// samples of a row over at most 16 rows (8 at N = 16, 4 at N = 8), at
+// most 64 x 1023 = 65,472.
+//
 // Interface: plain C entry points bound through ctypes. A call launches
 // on the given stream, allocates nothing, and returns cudaGetLastError().
 
@@ -138,6 +148,18 @@ __host__ __device__ constexpr int threads_of(bool pair, int kb) {
 __host__ __device__ constexpr int min_blocks_of(bool pair, int kb) {
   return pair ? (kb == 1 ? 20 : 10) : 8;
 }
+
+// Words of a current row (kCW), words a lane takes of it (kLW, at most
+// 4: one 16-byte load) and lanes per candidate (kL) for N-blocks of kB
+// bytes a sample.
+template <int N, int kB>
+struct Lanes {
+  static constexpr int kCW = N * kB / 4;
+  static constexpr int kLW = kCW < 4 ? kCW : 4;
+  static constexpr int kL = kCW / kLW;
+  static_assert(kCW == kLW * kL && (kLW == 2 || kLW == 4),
+                "a row splits into lanes of 2 or 4 words");
+};
 
 // One output of a search: (side, nb) penalties, (nb,) results.
 struct Out {
@@ -298,7 +320,7 @@ __device__ __forceinline__ void stage(const Geo& g, int gi, uint8_t* buf,
 // One thread's candidates: dx and the R consecutive dy from dy0 (the
 // last group of a side that R does not divide starts at side - R, so
 // it repeats candidates of the group before, which cannot change a
-// minimum), lane l of kL (its 4 words of each current row). Returns the
+// minimum), lane l of kL (its kLW words of each current row). Returns the
 // best cost and its index for each output; candidates are met in
 // ascending index, so a strict < keeps the first of equal costs. With
 // 2-byte samples the pair's lane l holds the 8-blocks of column l
@@ -311,10 +333,12 @@ __device__ __forceinline__ void search_item(
     const uint32_t* sslot, const int32_t* spx, const int32_t* spy,
     int (&bc)[kPair ? 5 : 1], int (&bi)[kPair ? 5 : 1]) {
   constexpr int kOut = kPair ? 5 : 1;
-  constexpr int kL = N * kB / 16;       // lanes per candidate
-  constexpr int kCW = N * kB / 4;       // words in a current row
-  static_assert(kCW == 4 * kL, "a lane takes 4 words of a row");
-  static_assert(!kPair || kL <= 2, "a pair lane holds whole 8-blocks");
+  constexpr int kL = Lanes<N, kB>::kL;    // lanes per candidate
+  constexpr int kCW = Lanes<N, kB>::kCW;  // words in a current row
+  constexpr int kLW = Lanes<N, kB>::kLW;  // words of a row per lane
+  static_assert(!kPair || (kL <= 2 && kLW == 4),
+                "a pair lane holds whole 8-blocks");
+  static_assert(kB == 1 || kLW == 4, "a 2-byte lane takes 8 samples");
   // partial sums per candidate: the pair's four quadrants (one lane)
   // or its lane's top and bottom 8-block (two lanes); the 32-block's
   // top and bottom 16 rows at 2 bytes a sample (a packed sum is
@@ -325,10 +349,10 @@ __device__ __forceinline__ void search_item(
   const int grp = rest / g.side;
   const int dx = rest - grp * g.side;
   const int dy0 = min(grp * R, g.side - R);
-  const uint32_t* crow = cslot + 4 * l;
+  const uint32_t* crow = cslot + kLW * l;
   // window row dy0 + r starts at byte a0 + r s kB; 4 s kB bytes are
   // s kB words, so rows r, r + 4, r + 8, ... share a shift and a step
-  const int a0 = ((g.lead + dy0) * g.s + g.lead + dx) * kB + 16 * l;
+  const int a0 = ((g.lead + dy0) * g.s + g.lead + dx) * kB + 4 * kLW * l;
   const uint32_t* wrow[4];
   uint32_t sh[4];
 #pragma unroll
@@ -346,7 +370,7 @@ __device__ __forceinline__ void search_item(
     const int cost = static_cast<int>(sad) + px[o] + py[k * kOut + o];
     if (cost < bc[o]) bc[o] = cost, bk[o] = k;
   };
-  uint32_t c[R][4];                     // ring of current rows
+  uint32_t c[R][kLW];                   // ring of current rows
   uint32_t acc[R][kQ];
 #pragma unroll
   for (int k = 0; k < R; ++k)
@@ -368,20 +392,26 @@ __device__ __forceinline__ void search_item(
 #pragma unroll
   for (int r = 0; r < R + N - 1; ++r) {
     if (r < N) {
-      const uint4 v = *reinterpret_cast<const uint4*>(crow + r * kCW);
-      c[r % R][0] = v.x;
-      c[r % R][1] = v.y;
-      c[r % R][2] = v.z;
-      c[r % R][3] = v.w;
+      if constexpr (kLW == 4) {
+        const uint4 v = *reinterpret_cast<const uint4*>(crow + r * kCW);
+        c[r % R][0] = v.x;
+        c[r % R][1] = v.y;
+        c[r % R][2] = v.z;
+        c[r % R][3] = v.w;
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(crow + r * kCW);
+        c[r % R][0] = v.x;
+        c[r % R][1] = v.y;
+      }
     }
     const uint32_t* p = wrow[r & 3];
     wrow[r & 3] = p + g.s * kB;
-    uint32_t w[5];
+    uint32_t w[kLW + 1];
 #pragma unroll
-    for (int j = 0; j < 5; ++j) w[j] = p[j];
-    uint32_t ref[4];
+    for (int j = 0; j <= kLW; ++j) w[j] = p[j];
+    uint32_t ref[kLW];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kLW; ++j)
       ref[j] = __funnelshift_r(w[j], w[j + 1], sh[r & 3]);
     if constexpr (kB == 2)
       pre[r + 1] = pre[r] + ref[0] + ref[1] + ref[2] + ref[3];
@@ -391,7 +421,7 @@ __device__ __forceinline__ void search_item(
       if (i < 0 || i >= N) continue;
       if constexpr (kB == 1) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kLW; ++j) {
           const int q = kQ == 4 ? 2 * (i >= N / 2) + (j >= 2) : 0;
           acc[k][q] = sad4(ref[j], c[i % R][j], acc[k][q]);
         }
@@ -471,7 +501,7 @@ int_search_kernel(const uint8_t* __restrict__ win,
   // 2 bytes a sample: 2 kL packed current sums per slot, after the keys
   uint32_t* ssum = reinterpret_cast<uint32_t*>(smem + g.off_key +
                                                8 * kOut * g.units);
-  constexpr int kL = N * kB / 16;
+  constexpr int kL = Lanes<N, kB>::kL;
   const int buf_bytes = g.units * g.slot_bytes;
 
   const int tid = threadIdx.x;
@@ -592,7 +622,7 @@ template <int N, bool kPair, int R, int kB>
 int run(const void* win, int nb, int s, int lead, int side, const void* cur,
         int cur_w, int bx, Out a, Out b, cudaStream_t stream) {
   constexpr int kOut = kPair ? 5 : 1;
-  constexpr int kL = N * kB / 16;
+  constexpr int kL = Lanes<N, kB>::kL;
   constexpr int kThreads = threads_of(kPair, kB);
   const int groups_dy = (side + R - 1) / R;
   Geo g{};
@@ -657,17 +687,18 @@ int run(const void* win, int nb, int s, int lead, int side, const void* cur,
 // one. Per dy group: R candidates of n^2 kB / 4 current words each and
 // their folds, and R + n - 1 window rows per lane. At 1 byte a sample a
 // word is one VABSDIFF4, a window row 5 (4 funnel shifts and a pointer
-// step), the folds of a candidate about 21 (the pair: 5 keys and the
-// halves' sums) or 6. At 2 bytes a word is 2 (a VIMNMX and an IMAD), a
+// step; 3 for the 8-block's 2-word lane), the folds of a candidate
+// about 21 (the pair: 5 keys and the halves' sums) or 6. At 2 bytes a word is 2 (a VIMNMX and an IMAD), a
 // window row 12 (5 loads, 4 funnel shifts, a pointer step and 2 IADD3
 // of its prefix sum), the folds per candidate and lane about 26 (the
 // pair: 2 halves made SADs and unpacked, 3 keys and a shuffle) or 18.
 int pick_r(const int* rs, int nr, int n, bool pair, int kb, int side) {
-  const int lanes = n * kb / 16;
+  const int lane_words = n * kb / 4 < 4 ? n * kb / 4 : 4;
+  const int lanes = n * kb / 4 / lane_words;
   const long long word = kb == 1 ? 2 : 4;
   const long long fold = kb == 1 ? 2 * (pair ? 21 : 6)
                                  : 2 * lanes * (pair ? 26 : 18);
-  const long long row = kb == 1 ? 2 * 5 : 2 * 12;
+  const long long row = kb == 1 ? 2 * (lane_words + 1) : 2 * 12;
   int best = 1;
   long long best_cost = LLONG_MAX;
   for (int m = 0; m < nr; ++m) {
@@ -727,15 +758,26 @@ int search_pair(const void* win, int nb16, int s, int lead, int side,
 }
 
 template <int kB>
-int search_single(const void* win, int nb, int s, int lead, int side,
+int search_single(const void* win, int nb, int s, int lead, int side, int n,
                   const void* cur, int cur_w, int bx, const void* penx,
                   const void* peny, void* cost, void* idx, void* stream) {
   if (nb <= 0) return static_cast<int>(cudaGetLastError());
   const Out a = out_of(penx, peny, nb, cost, idx);
   auto* st = static_cast<cudaStream_t>(stream);
   using Rs = std::conditional_t<kB == 1, SingleR1, SingleR2>;
-  return run_picked<32, false, kB>(Rs{}, win, nb, s, lead, side, cur,
-                                   cur_w, bx, a, a, st);
+  switch (n) {
+    case 8:
+      return run_picked<8, false, kB>(Rs{}, win, nb, s, lead, side, cur,
+                                      cur_w, bx, a, a, st);
+    case 16:
+      return run_picked<16, false, kB>(Rs{}, win, nb, s, lead, side, cur,
+                                       cur_w, bx, a, a, st);
+    case 32:
+      return run_picked<32, false, kB>(Rs{}, win, nb, s, lead, side, cur,
+                                       cur_w, bx, a, a, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -768,21 +810,21 @@ extern "C" int int_search_pair_u16(const void* win, int nb16, int s,
                         stream);
 }
 
-// 32-blocks. win (nb, s, s) uint8 (uint16 for _u16), any s; cur
-// (32 by, 32 bx) int32 with row length cur_w = 32 bx; penx/peny
+// n-blocks, n = 8, 16 or 32. win (nb, s, s) uint8 (uint16 for _u16),
+// any s; cur (n by, n bx) int32 with row length cur_w = n bx; penx/peny
 // (side, nb) int32; results (nb,) int32.
 extern "C" int int_search_u8(const void* win, int nb, int s, int lead,
-                             int side, const void* cur, int cur_w, int bx,
-                             const void* penx, const void* peny, void* cost,
-                             void* idx, void* stream) {
-  return search_single<1>(win, nb, s, lead, side, cur, cur_w, bx, penx,
+                             int side, int n, const void* cur, int cur_w,
+                             int bx, const void* penx, const void* peny,
+                             void* cost, void* idx, void* stream) {
+  return search_single<1>(win, nb, s, lead, side, n, cur, cur_w, bx, penx,
                           peny, cost, idx, stream);
 }
 
 extern "C" int int_search_u16(const void* win, int nb, int s, int lead,
-                              int side, const void* cur, int cur_w, int bx,
-                              const void* penx, const void* peny,
+                              int side, int n, const void* cur, int cur_w,
+                              int bx, const void* penx, const void* peny,
                               void* cost, void* idx, void* stream) {
-  return search_single<2>(win, nb, s, lead, side, cur, cur_w, bx, penx,
+  return search_single<2>(win, nb, s, lead, side, n, cur, cur_w, bx, penx,
                           peny, cost, idx, stream);
 }

@@ -80,6 +80,26 @@ def extract_blocks(plane: torch.Tensor, n: int) -> torch.Tensor:
     return plane.reshape(by, n, bx, n).permute(0, 2, 1, 3).reshape(-1, n, n)
 
 
+def gather_refs_orig(plane: np.ndarray, n: int) -> np.ndarray:
+    """Host form of gather_refs_device: canonical refs R[0..4n] of every
+    n-block of the (H, W) numpy plane, availability = inside the
+    picture, substitution = forward fill, 128 where nothing is
+    available. Returns (B, 4n+1) int32."""
+    h, w = plane.shape
+    by, bx = h // n, w // n
+    flat, avail = _ref_index_tables(h, w, n)
+    vals = np.where(avail, plane.reshape(-1)[flat].astype(np.int64), 0)
+    k = 4 * n + 1
+    idx = np.where(avail, np.arange(k)[None, :], -1)
+    filled = np.maximum.accumulate(idx, axis=-1)
+    first = np.argmax(avail, axis=-1)
+    first_val = np.take_along_axis(vals, first[:, None], axis=-1)
+    out = np.take_along_axis(vals, np.clip(filled, 0, k - 1), axis=-1)
+    out = np.where(filled >= 0, out, first_val)
+    out = np.where(avail.any(axis=-1, keepdims=True), out, 128)
+    return out.reshape(by * bx, k).astype(np.int32)
+
+
 @lru_cache(maxsize=None)
 def _ref_index_tables(h: int, w: int, n: int):
     """Gather indices + availability for gather_refs_device."""
@@ -119,6 +139,37 @@ def gather_refs_device(plane: torch.Tensor, n: int,
     any_avail = avail.any(dim=1, keepdim=True)
     return torch.where(any_avail, out, 1 << (bit_depth - 1)) \
         .to(torch.int32)
+
+
+def _mode_costs(blocks: torch.Tensor, refs: torch.Tensor, n: int,
+                lam_bits: torch.Tensor, bit_depth: int = 8):
+    """SATD + lambda * bits of all 35 modes of (B, n, n) blocks from their
+    (B, 4n+1) refs. Returns (best_mode (B,), best_cost (B,)) int32, the
+    first mode of equal costs."""
+    preds = intra_pred_all_modes(refs, n, is_luma=True, bit_depth=bit_depth)
+    costs = sa8d_nxn_batch(preds - blocks[:, None], n) + \
+        lam_bits[None, :].to(torch.int32)
+    return torch.argmin(costs, dim=1).to(torch.int32), \
+        torch.amin(costs, dim=1)
+
+
+def _refuse_intra64(n: int) -> None:
+    """H.265 has no 64x64 intra prediction (intra_filter_flag has no 64
+    row): the reference's analysis raises KeyError at that size."""
+    if n > 32:
+        raise KeyError(f"no {n}x{n} intra prediction: intra CUs of "
+                       f"CTU 64 are analysed on the 32 grid")
+
+
+def analyze_size_device(plane: torch.Tensor, n: int, lam_bits: torch.Tensor,
+                        bit_depth: int = 8):
+    """Mode decision of one CU size over an (H, W) int32 plane on the
+    device (H, W multiples of n): _mode_costs of its n-blocks from
+    original-pixel refs. Returns (best_mode (B,), best_cost (B,))."""
+    _refuse_intra64(n)
+    return _mode_costs(extract_blocks(plane, n),
+                       gather_refs_device(plane, n, bit_depth), n,
+                       lam_bits, bit_depth)
 
 
 def _rd_mode_size(plane: torch.Tensor, n: int, qp: int,
@@ -335,14 +386,116 @@ def analyze_chroma_gop(orig_cb: torch.Tensor, orig_cr: torch.Tensor,
 
 def analyze_intra_frame(orig_y: torch.Tensor, qp: int, ctu_size: int = 32,
                         bit_depth: int = 8, intra_nxn: bool = False):
-    """The analysis of the host-recon I frame: analyze_intra_gop on one
-    (H, W) plane on the device (ctu_size <= 32; CTU 64 analyses on the
-    32 grid). Returns host arrays (depth8, mode8, nxn8, mode4)."""
-    d8, m8, nxn8, m4 = analyze_intra_gop(orig_y[None], qp, ctu_size,
-                                         bit_depth, intra_nxn=intra_nxn)
-    return (d8[0].cpu().numpy().astype(np.uint8),
-            m8[0].cpu().numpy().astype(np.uint8), nxn8[0].cpu().numpy(),
-            m4[0].cpu().numpy().astype(np.uint8))
+    """Mode + depth decision of one (H, W) plane on the device, 8-aligned.
+    Returns host arrays (depth8, mode8, nxn8, mode4): depth/mode on the
+    8x8 grid (depth relative to ctu_size), nxn8 the PART_NxN CUs, mode4
+    (H/4, W/4) their PU modes.
+
+    ctu_size <= 32 (every encoder path: CTU 64 analyses on the 32 grid):
+    analyze_intra_gop on the one frame. ctu_size > 32: the reference's
+    SATD decision, analyze_size_device over the sizes 8 .. ctu_size (4
+    too with intra_nxn), each on the plane edge-padded to its multiple,
+    then the bottom-up depth choice on the host in float64. That branch
+    serves no legal CTU size: at 64 it raises KeyError, as the
+    reference does at its 64 size, and only 48 runs it to its end."""
+    if ctu_size <= 32:
+        d8, m8, nxn8, m4 = analyze_intra_gop(orig_y[None], qp, ctu_size,
+                                             bit_depth, intra_nxn=intra_nxn)
+        return (d8[0].cpu().numpy().astype(np.uint8),
+                m8[0].cpu().numpy().astype(np.uint8), nxn8[0].cpu().numpy(),
+                m4[0].cpu().numpy().astype(np.uint8))
+    h, w = orig_y.shape
+    lam = lambda_from_qp(qp)
+    sizes = [s for s in (8, 16, 32, 64) if s <= ctu_size]
+    _refuse_intra64(sizes[-1])
+    if intra_nxn:
+        sizes = [4] + sizes
+    lam_bits = torch.as_tensor(np.round(lam * _MODE_BITS).astype(np.int32),
+                               device=orig_y.device)
+    plane = orig_y.to(torch.int32)
+    best_mode: dict[int, np.ndarray] = {}
+    best_cost: dict[int, np.ndarray] = {}
+    for n in sizes:
+        hp = (h + n - 1) // n * n
+        wp = (w + n - 1) // n * n
+        mode, cost = analyze_size_device(edge_pad(plane, hp, wp), n,
+                                         lam_bits, bit_depth)
+        by, bx = hp // n, wp // n
+        c = cost.cpu().numpy().reshape(by, bx).astype(np.float64)
+        # blocks past the real (padded-to-8) frame can't be chosen whole
+        ny, nx = np.meshgrid(np.arange(by), np.arange(bx), indexing="ij")
+        over = ((ny + 1) * n > h) | ((nx + 1) * n > w)
+        best_mode[n] = mode.cpu().numpy().reshape(by, bx)
+        best_cost[n] = np.where(over, np.inf, c)
+    return _depth_choice(best_mode, best_cost, sizes, h, w, lam, ctu_size,
+                         intra_nxn)
+
+
+def _depth_choice(best_mode: dict, best_cost: dict, sizes: list, h: int,
+                  w: int, lam: float, ctu_size: int, intra_nxn: bool):
+    """The reference's bottom-up depth choice over per-size SATD costs
+    (float64, split overhead 6 lambda, NxN 8 lambda; the first-listed
+    choice on ties: keep the CU when its cost <= the split's), with
+    depth relative to ctu_size. Returns (depth8, mode8, nxn8, mode4)."""
+    n8y, n8x = h // 8, w // 8
+    nxn_map = np.zeros(best_cost[8].shape, dtype=bool)
+    if intra_nxn:
+        # PART_NxN alternative at min CU: four 4x4 PUs
+        c4 = best_cost[4]
+        cost_nxn = c4.reshape(c4.shape[0] // 2, 2, c4.shape[1] // 2, 2) \
+            .sum(axis=(1, 3)) + lam * 8.0
+        cost_nxn = cost_nxn[:best_cost[8].shape[0], :best_cost[8].shape[1]]
+        nxn_map = cost_nxn < best_cost[8]
+        best_cost[8] = np.where(nxn_map, cost_nxn, best_cost[8])
+
+    split_bits = 6.0
+    depth_map: dict[int, np.ndarray] = {}   # per size: True = split
+    agg_cost = best_cost[8]
+    for n in [s for s in sizes if s > 8]:
+        by, bx = best_cost[n].shape
+        # children outside the picture cost 0 (the tree doesn't recurse)
+        cy, cx = agg_cost.shape
+        padded = np.zeros((by * 2, bx * 2))
+        padded[:cy, :cx] = agg_cost
+        child = padded.reshape(by, 2, bx, 2).sum(axis=(1, 3)) + \
+            lam * split_bits
+        keep = best_cost[n] <= child
+        depth_map[n] = ~keep
+        agg_cost = np.where(keep, best_cost[n], child)
+
+    depth8 = np.zeros((n8y, n8x), dtype=np.uint8)
+    mode8 = np.zeros((n8y, n8x), dtype=np.uint8)
+    nxn8 = np.zeros((n8y, n8x), dtype=bool)
+    mode4 = np.zeros((h // 4, w // 4), dtype=np.uint8)
+    log2_ctu = ctu_size.bit_length() - 1
+
+    def fill(n: int, yb: int, xb: int) -> None:
+        if yb * n >= h or xb * n >= w:
+            return
+        if n > 8 and depth_map[n][yb, xb]:
+            for sy in range(2):
+                for sx in range(2):
+                    fill(n // 2, yb * 2 + sy, xb * 2 + sx)
+            return
+        s = n // 8
+        depth8[yb * s:(yb + 1) * s, xb * s:(xb + 1) * s] = \
+            log2_ctu - (n.bit_length() - 1)
+        if n == 8 and nxn_map[yb, xb]:
+            nxn8[yb, xb] = True
+            mode4[yb * 2:yb * 2 + 2, xb * 2:xb * 2 + 2] = \
+                best_mode[4][yb * 2:yb * 2 + 2, xb * 2:xb * 2 + 2]
+            mode8[yb, xb] = best_mode[4][yb * 2, xb * 2]   # PU0 (DM)
+        else:
+            m = best_mode[n][yb, xb]
+            mode4[yb * s * 2:(yb + 1) * s * 2,
+                  xb * s * 2:(xb + 1) * s * 2] = m
+            mode8[yb * s:(yb + 1) * s, xb * s:(xb + 1) * s] = m
+
+    top = sizes[-1]
+    for yb in range((h + top - 1) // top):
+        for xb in range((w + top - 1) // top):
+            fill(top, yb, xb)
+    return depth8, mode8, nxn8, mode4
 
 
 def analyze_chroma_modes(orig_cb: torch.Tensor, orig_cr: torch.Tensor,

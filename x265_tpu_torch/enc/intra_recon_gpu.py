@@ -38,6 +38,7 @@ from ..ops.intra import intra_pred_single_mode
 from ..ops.transforms import (dct_batch, dequant_batch, idct_batch,
                               quant_batch, sign_hide_batch)
 from .intra_analysis import edge_pad
+from .intra_recon import ReconFrame
 
 CTU = 32
 
@@ -515,3 +516,23 @@ def reconstruct_intra_gop_gpu(orig_y: torch.Tensor, orig_cb: torch.Tensor,
         nxn8=None if nxn8 is None else nxn8[f],
         mode4=None if mode4 is None else mode4[f]) for f in range(nf)]
     return syns, (ry, rc[:nf], rc[nf:])
+
+
+def reconstruct_intra_frame_gpu(orig_y: torch.Tensor, orig_cb: torch.Tensor,
+                                orig_cr: torch.Tensor, depth8: np.ndarray,
+                                mode8: np.ndarray, cfg: EncoderConfig,
+                                qp: int | None = None,
+                                cmode8: np.ndarray | None = None,
+                                nxn8: np.ndarray | None = None,
+                                mode4: np.ndarray | None = None):
+    """One intra frame through reconstruct_intra_gop_gpu: orig_* (H, W)
+    and (H/2, W/2) planes on the device, the decision maps of that one
+    frame. Returns (FrameIntraSyntax, ReconFrame) with int32 host recon
+    planes."""
+    syns, (ry, rcb, rcr) = reconstruct_intra_gop_gpu(
+        orig_y[None], orig_cb[None], orig_cr[None], depth8[None],
+        mode8[None], cfg, qp,
+        cmode8=None if cmode8 is None else cmode8[None],
+        nxn8=None if nxn8 is None else nxn8[None],
+        mode4=None if mode4 is None else mode4[None])
+    return syns[0], ReconFrame(*(p[0].cpu().numpy() for p in (ry, rcb, rcr)))

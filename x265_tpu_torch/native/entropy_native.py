@@ -101,11 +101,64 @@ def get_lib() -> ctypes.CDLL:
         lib.encode_slice_wpp.restype = ctypes.c_int
         lib.encode_slice_wpp.argtypes = lib.encode_slice.argtypes[:-2] + \
             [ctypes.c_void_p, ctypes.c_int]
+        lib.encode_intra_slice.restype = ctypes.c_int
+        lib.encode_intra_slice.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int)]
+        lib.expand_cgs.restype = None
+        lib.expand_cgs.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.ctx_layout_checksum.restype = ctypes.c_int
         assert lib.ctx_layout_checksum() == _layout_checksum(), \
             "native context layout out of sync — rebuild failed?"
         _lib = lib
     return _lib
+
+
+def expand_cgs_native(vals: np.ndarray, idx: np.ndarray, in_ncx: int,
+                      out_h: int, out_w: int) -> np.ndarray:
+    """Scatter (t, 16) int16 coefficient-group rows at raster indices
+    idx of a grid in_ncx CGs wide into a dense (out_h, out_w) int16
+    plane; CGs outside it are dropped."""
+    lib = get_lib()
+    v = np.ascontiguousarray(vals, dtype=np.int16)
+    ix = np.ascontiguousarray(idx, dtype=np.int32)
+    out = np.empty((out_h, out_w), np.int16)
+    lib.expand_cgs(v.ctypes.data, ix.ctypes.data, len(ix), in_ncx, out_h,
+                   out_w, out.ctypes.data)
+    return out
+
+
+def encode_intra_slice_native(depth8: np.ndarray, mode8: np.ndarray,
+                              coeff_y: np.ndarray, coeff_cb: np.ndarray,
+                              coeff_cr: np.ndarray, w: int, h: int,
+                              log2_ctu: int, log2_min_cu: int,
+                              init_states: np.ndarray
+                              ) -> tuple[bytes, int, int]:
+    """The I slice data of 2Nx2N CUs with their luma and chroma modes
+    (mode8 for both) through the native coder. Returns (payload bytes,
+    CABAC tail value, tail bits)."""
+    lib = get_lib()
+    arrs = [np.ascontiguousarray(a, dtype=dt) for a, dt in (
+        (depth8, np.uint8), (mode8, np.uint8), (coeff_y, np.int16),
+        (coeff_cb, np.int16), (coeff_cr, np.int16))]
+    st = np.ascontiguousarray(init_states, dtype=np.uint8)
+    cap = w * h * 4 + 4096
+    out = np.empty(cap, dtype=np.uint8)
+    tail_val = ctypes.c_uint32(0)
+    tail_bits = ctypes.c_int(0)
+    n = lib.encode_intra_slice(*(a.ctypes.data for a in arrs), w, h,
+                               log2_ctu, log2_min_cu, st.ctypes.data,
+                               len(st), out.ctypes.data, cap,
+                               ctypes.byref(tail_val), ctypes.byref(tail_bits))
+    if n < 0:
+        raise RuntimeError("native slice encoder overflowed output buffer")
+    return out[:n].tobytes(), int(tail_val.value), int(tail_bits.value)
 
 
 class _PExtC(ctypes.Structure):

@@ -163,28 +163,20 @@ def _filter_bank(is_luma: bool) -> np.ndarray:
     return LUMA_FILTERS if is_luma else CHROMA_FILTERS
 
 
-def mc_block_batch(ref: torch.Tensor, x0s: torch.Tensor, y0s: torch.Tensor,
-                   mvx: torch.Tensor, mvy: torch.Tensor, n: int, *,
-                   is_luma: bool = True, bit_depth: int = 8,
+def filter_patches(patches: torch.Tensor, hf: torch.Tensor,
+                   vf: torch.Tensor, n: int, bit_depth: int = 8,
                    raw: bool = False) -> torch.Tensor:
-    """Motion-compensate B same-size blocks with per-block MVs.
-
-    ref: (H, W) plane; x0s/y0s: (B,) int block origins; mvx/mvy: (B,)
-    MVs in quarter-pel (luma) units, eighth-pel of chroma. Returns (B,
-    n, n) int32 predictions, or with raw the 26-bit accumulators
-    (>> 6 is the 14-bit prediction). int32 arithmetic: every partial
-    sum is below 2^24, the integers the reference's float32 einsums
-    hold exactly, so the two agree."""
-    taps = LUMA_TAPS if is_luma else CHROMA_TAPS
-    half = taps // 2 - 1
-    frac, sh = (3, 2) if is_luma else (7, 3)
-    fx, fy = mvx & frac, mvy & frac
-    ix = x0s + (mvx >> sh)
-    iy = y0s + (mvy >> sh)
-    bank = torch.as_tensor(_filter_bank(is_luma), device=ref.device)
-    hf = bank[fx.long()]                               # (B, taps)
-    vf = bank[fy.long()]
-    patches = _gather_patches(ref, ix - half, iy - half, n + taps - 1)
+    """Separable interpolation of (B, n+taps-1, n+taps-1) sample
+    patches with per-block filters hf/vf (B, taps): (B, n, n) int32
+    rounded predictions, or with raw the 26-bit accumulators. uint16
+    (10-bit) patches are read through their int16 view, the same
+    numbers, since the GPU build lacks most uint16 kernels. int32
+    arithmetic: every partial sum is below 2^24, the integers the
+    reference's float32 einsums hold exactly, so the two agree."""
+    if patches.dtype == torch.uint16:
+        patches = patches.view(torch.int16)
+    patches = patches.to(torch.int32)
+    taps = hf.shape[1]
     # horizontal: tmp[b, r, c] = sum_t hf[b, t] * patch[b, r, c + t]
     tmp = sum(hf[:, t, None, None] * patches[:, :, t:t + n]
               for t in range(taps))
@@ -199,6 +191,34 @@ def mc_block_batch(ref: torch.Tensor, x0s: torch.Tensor, y0s: torch.Tensor,
     total_shift = 12 - shift1
     out = (out + (1 << (total_shift - 1))) >> total_shift
     return torch.clamp(out, 0, (1 << bit_depth) - 1)
+
+
+def block_filters(mvx: torch.Tensor, mvy: torch.Tensor, is_luma: bool,
+                  device: torch.device):
+    """Per-block horizontal and vertical filters (B, taps) of quarter-
+    pel (luma) or eighth-pel (chroma) MVs, and their integer parts."""
+    frac, sh = (3, 2) if is_luma else (7, 3)
+    bank = torch.as_tensor(_filter_bank(is_luma), device=device)
+    return (bank[(mvx & frac).long()], bank[(mvy & frac).long()],
+            mvx >> sh, mvy >> sh)
+
+
+def mc_block_batch(ref: torch.Tensor, x0s: torch.Tensor, y0s: torch.Tensor,
+                   mvx: torch.Tensor, mvy: torch.Tensor, n: int, *,
+                   is_luma: bool = True, bit_depth: int = 8,
+                   raw: bool = False) -> torch.Tensor:
+    """Motion-compensate B same-size blocks with per-block MVs.
+
+    ref: (H, W) plane; x0s/y0s: (B,) int block origins; mvx/mvy: (B,)
+    MVs in quarter-pel (luma) units, eighth-pel of chroma. Returns (B,
+    n, n) int32 predictions, or with raw the 26-bit accumulators
+    (>> 6 is the 14-bit prediction)."""
+    taps = LUMA_TAPS if is_luma else CHROMA_TAPS
+    half = taps // 2 - 1
+    hf, vf, ix, iy = block_filters(mvx, mvy, is_luma, ref.device)
+    patches = _gather_patches(ref, x0s + ix - half, y0s + iy - half,
+                              n + taps - 1)
+    return filter_patches(patches, hf, vf, n, bit_depth, raw)
 
 
 def bi_average(acc0: torch.Tensor, acc1: torch.Tensor,

@@ -20,7 +20,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .interp import CHROMA_FILTERS, LUMA_FILTERS
+from .interp import (CHROMA_FILTERS, LUMA_FILTERS, block_filters,
+                     filter_patches)
 from .me import _mv_bits, bitlen
 from .satd import sa8d_nxn_lanes
 
@@ -155,6 +156,7 @@ def _ext_bank9() -> np.ndarray:
 
 @lru_cache(maxsize=None)
 def _bank(name: str, device: torch.device) -> torch.Tensor:
+    """A filter bank, one filter per row: "ext9" or "chroma"."""
     arr = _ext_bank9() if name == "ext9" else CHROMA_FILTERS
     return torch.as_tensor(arr, dtype=torch.int32, device=device)
 
@@ -163,6 +165,34 @@ def _round_clip(acc: torch.Tensor, bit_depth: int) -> torch.Tensor:
     total_shift = 12 - (bit_depth - 8)
     out = (acc + (1 << (total_shift - 1))) >> total_shift
     return torch.clamp(out, 0, (1 << bit_depth) - 1)
+
+
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    """Samples as int32; uint16 (10-bit) ones through their int16 view,
+    the same numbers, since the GPU build lacks most uint16 kernels."""
+    return (t.view(torch.int16) if t.dtype == torch.uint16 else t) \
+        .to(torch.int32)
+
+
+def interp_ext(win: torch.Tensor, dxi: torch.Tensor, dyi: torch.Tensor,
+               n: int, bit_depth: int = 8) -> torch.Tensor:
+    """(B, n, n) rounded predictions from BLOCK-MAJOR (B, n+8, n+8)
+    sub-pel windows, sample (b, 4, 4) the block origin at the integer
+    MV; dxi/dyi (B,) index the 9-tap extended bank (quarter-pel offset
+    + 3). Bit-exact with ops.interp.mc_block_batch at mv = 4 mvi + d."""
+    bank = _bank("ext9", win.device)
+    return filter_patches(win, bank[dxi], bank[dyi], n, bit_depth)
+
+
+def gather_zero(ref: torch.Tensor, y0s: torch.Tensor, x0s: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """Co-located (zero-MV) n-blocks of the (H, W) plane ref, (B, n, n)
+    int32 in raster order: a reshape, no gather (y0s/x0s, the raster
+    origins, are not read)."""
+    h, w = ref.shape
+    by, bx = h // n, w // n
+    return _int32(ref).reshape(by, n, bx, n).permute(0, 2, 1, 3) \
+        .reshape(by * bx, n, n)
 
 
 def interp_ext_lanes(win_t: torch.Tensor, dxi: torch.Tensor,
@@ -444,9 +474,12 @@ def int_search_windows_plain(w, cur_plane, penx, peny, n: int, side: int,
                           peny, n, side, lead)
 
 
+SEARCH_SIZES = (8, 16, 32)
+
+
 def int_search_windows(w, cur_plane, penx, peny, n: int, side: int,
                        lead: int = 4):
-    """Integer full search of the 32-blocks (n must be 32) over their
+    """Integer full search of the n-blocks (n = 8, 16 or 32) over their
     (B, S, S) uint8 or uint16 windows w, raster order over the (H, W)
     int32 current plane (samples of the windows' bit depth: below 2^10
     for uint16 windows, as the kernel's packed sums need); penx/peny
@@ -454,10 +487,12 @@ def int_search_windows(w, cur_plane, penx, peny, n: int, side: int,
     Returns (best_cost (B,), best_i (B,)), int32: the results of
     int_search_vec. A CUDA tensor goes through the kernel
     (csrc/int_search.cu, counted in int_search_windows.launches, uint16
-    windows also in .launches_u16); a CPU tensor through the plain
-    version."""
-    if n != 32:
-        raise ValueError(f"int_search_windows searches 32-blocks, got {n}")
+    windows also in .launches_u16, and per block size in
+    .launches_n[n] and .launches_n_u16[n]); a CPU tensor through the
+    plain version."""
+    if n not in SEARCH_SIZES:
+        raise ValueError(f"int_search_windows searches {SEARCH_SIZES}-"
+                         f"blocks, got {n}")
     b = w.shape[0] if w.dim() == 3 else -1
     _check_search("int_search_windows", w, cur_plane, n,
                   [(penx, b), (peny, b)], side, lead)
@@ -472,19 +507,24 @@ def int_search_windows(w, cur_plane, penx, peny, n: int, side: int,
     cost, idx = (torch.empty(b, dtype=torch.int32, device=dev)
                  for _ in range(2))
     err = _search_fns()["single", w.dtype](
-        w.data_ptr(), b, w.shape[1], lead, side, cur_plane.data_ptr(), ww,
+        w.data_ptr(), b, w.shape[1], lead, side, n, cur_plane.data_ptr(), ww,
         ww // n, penx.data_ptr(), peny.data_ptr(), cost.data_ptr(),
         idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int_search_windows launch failed: CUDA error "
                            f"{err}")
+    u16 = w.dtype == torch.uint16
     int_search_windows.launches += 1
-    int_search_windows.launches_u16 += w.dtype == torch.uint16
+    int_search_windows.launches_u16 += u16
+    int_search_windows.launches_n[n] += 1
+    int_search_windows.launches_n_u16[n] += u16
     return cost, idx
 
 
 int_search_windows.launches = 0
 int_search_windows.launches_u16 = 0
+int_search_windows.launches_n = dict.fromkeys(SEARCH_SIZES, 0)
+int_search_windows.launches_n_u16 = dict.fromkeys(SEARCH_SIZES, 0)
 
 
 @lru_cache(maxsize=None)
@@ -497,7 +537,7 @@ def _search_fns():
         pair = getattr(lib, f"int_search_pair_{sfx}")
         single = getattr(lib, f"int_search_{sfx}")
         pair.argtypes = [p, i, i, i, i, p, i, i, p, p, p, p, p, p, p, p, p]
-        single.argtypes = [p, i, i, i, i, p, i, i, p, p, p, p, p]
+        single.argtypes = [p, i, i, i, i, i, p, i, i, p, p, p, p, p]
         for fn in (pair, single):
             fn.restype = ctypes.c_int
         fns["pair", dt], fns["single", dt] = pair, single
@@ -550,6 +590,122 @@ def search_plane(cur: torch.Tensor, cur_search: torch.Tensor, wm, k: int):
     m = wm.reshape(h // k, w // k).repeat_interleave(k, 0) \
         .repeat_interleave(k, 1)
     return torch.where(m, cur_search, cur).contiguous()
+
+
+def _qpel_rounds(swin_t: torch.Tensor, cur_t: torch.Tensor,
+                 mvx_i: torch.Tensor, mvy_i: torch.Tensor, lam, n: int,
+                 bit_depth: int, wround, want_raw: bool = False):
+    """Quarter-pel refinement from the (n+8, n+8, B) sub-pel windows at
+    the integer MVs: the integer position's SA8D + MV bits, then two
+    diamond rounds (step 2, then 1) over its 8 neighbours, offsets
+    clamped to [-3, 3], the first least cost winning on a strict <.
+    wround rounds the raw accumulators to predictions. Returns (dx, dy,
+    cost, pred (n, n, B), raw accumulator of pred or None)."""
+    b = cur_t.shape[-1]
+    dev = cur_t.device
+    dx = torch.zeros((b,), dtype=torch.int32, device=dev)
+    dy = torch.zeros((b,), dtype=torch.int32, device=dev)
+    best_raw = interp_ext_lanes(swin_t, dx + 3, dy + 3, n, bit_depth,
+                                raw=True)
+    best_pred = wround(best_raw)
+    scost = sa8d_nxn_lanes(cur_t - best_pred, n) + \
+        lam * _mv_bits(mvx_i * 4, mvy_i * 4)
+    noff = torch.tensor([(1, 0), (-1, 0), (0, 1), (0, -1),
+                         (1, 1), (1, -1), (-1, 1), (-1, -1)],
+                        dtype=torch.int32, device=dev)
+    for step in (2, 1):
+        # one diamond round: the 8 neighbours of the current best
+        cx = torch.clamp(dx[None, :] + noff[:, 0:1] * step, -3, 3)
+        cy = torch.clamp(dy[None, :] + noff[:, 1:2] * step, -3, 3)
+        praw = interp_ext_lanes_multi(swin_t, cx + 3, cy + 3, n, bit_depth,
+                                      raw=True)
+        rnd = wround(praw)
+        c = sa8d_multi(cur_t[None] - rnd, n) + \
+            lam * _mv_bits(mvx_i[None] * 4 + cx, mvy_i[None] * 4 + cy)
+        mc, mi = _argmin_first(c)
+        better = mc < scost
+        scost = torch.where(better, mc, scost)
+        dx = torch.where(better, _take_k(cx, mi), dx)
+        dy = torch.where(better, _take_k(cy, mi), dy)
+        best_pred = torch.where(better[None, None, :], _take_k(rnd, mi),
+                                best_pred)
+        if want_raw:
+            best_raw = torch.where(better[None, None, :], _take_k(praw, mi),
+                                   best_raw)
+    return dx, dy, scost, best_pred, best_raw if want_raw else None
+
+
+def me_size_windowed(cur: torch.Tensor, ref_pad: torch.Tensor,
+                     seed_mv: torch.Tensor, lam, n: int, radius: int = 6,
+                     bit_depth: int = 8, pad: int | None = None):
+    """Full ME for all n-blocks of a frame (n = 8, 16 or 32): integer
+    full search of (2r+1)^2 candidates around per-block seeds, a zero-MV
+    rescue, then two quarter-pel diamond rounds. Returns (mv_qpel (B, 2),
+    cost (B,), pred (B, n, n)) int32, pred the rounded prediction at the
+    chosen MV (ops.interp.mc_block_batch's there).
+
+    cur (H, W) int32 samples; ref_pad the uint8 (uint16 at 10 bits)
+    reference edge-padded by pad >= 2*radius + 8 (pad_ref); seed_mv
+    (B, 2) int32 full-pel seeds; lam an integer lambda. Two window
+    gathers (the search window n + 2r at seed - r, lead 0, and the
+    sub-pel window n + 8 at the best integer MV - 4) and the integer
+    search run on the GPU kernels."""
+    if pad is None:
+        pad = 2 * radius + 8
+    h, w = cur.shape
+    if tuple(ref_pad.shape) != (h + 2 * pad, w + 2 * pad):
+        raise ValueError(f"ref_pad {tuple(ref_pad.shape)} is not the "
+                         f"{h}x{w} plane padded by {pad}")
+    dev = cur.device
+    by, bx = h // n, w // n
+    y0s = (torch.arange(by, dtype=torch.int32, device=dev) * n) \
+        .repeat_interleave(bx)
+    x0s = (torch.arange(bx, dtype=torch.int32, device=dev) * n).repeat(by)
+    cur_plane = cur.to(torch.int32).contiguous()
+    cur_t = lanes_of(cur_plane, n)
+
+    # clamp seeds so windows stay near the plane
+    sx = _clip(seed_mv[:, 0].to(torch.int32), -x0s - radius,
+               (w - n) - x0s + radius)
+    sy = _clip(seed_mv[:, 1].to(torch.int32), -y0s - radius,
+               (h - n) - y0s + radius)
+    win = gather_windows_ds(ref_pad, pad, y0s + sy - radius,
+                            x0s + sx - radius, n + 2 * radius)
+
+    # separable per-axis MV-bit penalties (side, B): the reference's
+    # float32 2 ceil(log2(|v| + 1)) + 1, as an integer bit length
+    side = 2 * radius + 1
+    offs = torch.arange(side, dtype=torch.int32, device=dev) - radius
+
+    def pen(seed):
+        v = (seed[None, :] + offs[:, None]) * 4
+        return (lam * (2 * bitlen(torch.abs(v)) + 1)).to(torch.int32) \
+            .contiguous()
+
+    best_cost, best_i = int_search_windows(win, cur_plane, pen(sx), pen(sy),
+                                           n, side, lead=0)
+    oy = torch.div(best_i, side, rounding_mode="floor")
+    mvx_i = sx + (best_i - oy * side) - radius
+    mvy_i = sy + oy - radius
+
+    # the zero-MV candidate (dense, no gather), strict <
+    zero_t = lanes_of(_int32(ref_pad[pad:pad + h, pad:pad + w]), n)
+    zeros = torch.zeros_like(sx)
+    cost0 = torch.abs(cur_t - zero_t).sum((0, 1), dtype=torch.int32) + \
+        lam * _mv_bits(zeros, zeros)
+    z = cost0 < best_cost
+    mvx_i = torch.where(z, 0, mvx_i)
+    mvy_i = torch.where(z, 0, mvy_i)
+
+    # the sub-pel window, then quarter-pel rounds of step 2 and 1
+    swin_t = _int32(gather_windows_ds(ref_pad, pad, y0s + mvy_i - 4,
+                                      x0s + mvx_i - 4, n + 8)) \
+        .permute(1, 2, 0)
+    dx, dy, scost, pred, _ = _qpel_rounds(
+        swin_t, cur_t, mvx_i, mvy_i, lam, n, bit_depth,
+        lambda acc: _round_clip(acc, bit_depth))
+    mvq = torch.stack([mvx_i * 4 + dx, mvy_i * 4 + dy], dim=1)
+    return mvq, scost.to(torch.int32), pred.permute(2, 0, 1)
 
 
 # =============================================================================
@@ -641,10 +797,6 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
         return (lam * comp_bits((seedx[None, :] + offs[:, None]) * 4),
                 lam * comp_bits((seedy[None, :] + offs[:, None]) * 4))
 
-    noff = torch.tensor([(1, 0), (-1, 0), (0, 1), (0, -1),
-                         (1, 1), (1, -1), (-1, 1), (-1, -1)],
-                        dtype=torch.int32, device=dev)
-
     def run_size(win_t, cur_t, seedx, seedy, n, int_best, zero_plane=None,
                  wmask=None):
         """win_t: (n+2r+8, n+2r+8, B) windows at seed-(r+4); cur_t the
@@ -653,7 +805,6 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
         candidates (None: the unpadded ref_pad); wmask (B,) bool, the
         weighted blocks when weights reach reference 0 only. Returns
         (mv_qpel, cost, pred (n, n, B))."""
-        b = cur_t.shape[-1]
         _, best_i = int_best
         oy_i = torch.div(best_i, side, rounding_mode="floor")
         ox_i = best_i - oy_i * side
@@ -670,34 +821,8 @@ def me_all_sizes(cur: torch.Tensor, ref_pad: torch.Tensor,
 
         # sub-pel window at the best integer position
         swin_t = select_window_lanes(win_t, oy_i, ox_i, n + 8, side)
-
-        dx = torch.zeros((b,), dtype=torch.int32, device=dev)
-        dy = torch.zeros((b,), dtype=torch.int32, device=dev)
-        best_raw = interp_ext_lanes(swin_t, dx + 3, dy + 3, n, bit_depth,
-                                    raw=True)
-        pred = wround(best_raw)
-        scost = sa8d_nxn_lanes(cur_t - pred, n) + \
-            lam * _mv_bits(mvx_i * 4, mvy_i * 4)
-        best_pred = pred
-        for step in (2, 1):
-            # one diamond round: the 8 neighbours of the current best
-            cx = torch.clamp(dx[None, :] + noff[:, 0:1] * step, -3, 3)
-            cy = torch.clamp(dy[None, :] + noff[:, 1:2] * step, -3, 3)
-            praw = interp_ext_lanes_multi(swin_t, cx + 3, cy + 3, n,
-                                          bit_depth, raw=True)
-            rnd = wround(praw)
-            c = sa8d_multi(cur_t[None] - rnd, n) + \
-                lam * _mv_bits(mvx_i[None] * 4 + cx, mvy_i[None] * 4 + cy)
-            mc, mi = _argmin_first(c)
-            better = mc < scost
-            scost = torch.where(better, mc, scost)
-            dx = torch.where(better, _take_k(cx, mi), dx)
-            dy = torch.where(better, _take_k(cy, mi), dy)
-            best_pred = torch.where(better[None, None, :], _take_k(rnd, mi),
-                                    best_pred)
-            if want_raw:
-                best_raw = torch.where(better[None, None, :],
-                                       _take_k(praw, mi), best_raw)
+        dx, dy, scost, best_pred, best_raw = _qpel_rounds(
+            swin_t, cur_t, mvx_i, mvy_i, lam, n, bit_depth, wround, want_raw)
         mvqx = mvx_i * 4 + dx
         mvqy = mvy_i * 4 + dy
 
@@ -869,3 +994,19 @@ def chroma_mc_from_windows(win_b: torch.Tensor, offy: torch.Tensor,
         outs.append(interp_chroma_lanes(patch, fx, fy, cn, bit_depth,
                                         raw=raw).permute(2, 0, 1))
     return outs[0], outs[1]
+
+
+def mc_block_batch_ds(ref_pad: torch.Tensor, pad: int, x0s: torch.Tensor,
+                      y0s: torch.Tensor, mvx: torch.Tensor,
+                      mvy: torch.Tensor, n: int, *, is_luma: bool = True,
+                      bit_depth: int = 8) -> torch.Tensor:
+    """ops.interp.mc_block_batch with the patches taken by the window
+    gather (the GPU kernel) from a plane edge-padded by `pad`: (B, n, n)
+    int32 rounded predictions, bit-exact with mc_block_batch whenever
+    every patch lies inside the padded plane (|mv| bounded by pad less
+    the taps). mvx/mvy quarter-pel (luma) or eighth-pel (chroma)."""
+    half = 3 if is_luma else 1
+    hf, vf, ix, iy = block_filters(mvx, mvy, is_luma, ref_pad.device)
+    patches = gather_windows_ds(ref_pad, pad, y0s + iy - half,
+                                x0s + ix - half, n + 2 * half + 1)
+    return filter_patches(patches, hf, vf, n, bit_depth)

@@ -24,6 +24,49 @@ def hadamard(n: int) -> np.ndarray:
     return np.block([[h, h], [h, -h]]).astype(np.int32)
 
 
+def satd4_np(a: np.ndarray, b: np.ndarray) -> int:
+    """4x4 SATD of two numpy blocks, x265 normalization ((sum + 1) >> 1)."""
+    h = hadamard(4)
+    t = h @ (a.astype(np.int64) - b.astype(np.int64)) @ h.T
+    return int((np.abs(t).sum() + 1) >> 1)
+
+
+def sa8d_np(a: np.ndarray, b: np.ndarray) -> int:
+    """8x8 SA8D of two numpy blocks, x265 normalization ((sum + 2) >> 2)."""
+    h = hadamard(8)
+    t = h @ (a.astype(np.int64) - b.astype(np.int64)) @ h.T
+    return int((np.abs(t).sum() + 2) >> 2)
+
+
+def sa8d_block_np(a: np.ndarray, b: np.ndarray) -> int:
+    """SA8D of an NxN block (N a multiple of 8): the sum of its 8x8
+    SA8Ds."""
+    n = a.shape[-1]
+    return sum(sa8d_np(a[y:y + 8, x:x + 8], b[y:y + 8, x:x + 8])
+               for y in range(0, n, 8) for x in range(0, n, 8))
+
+
+@lru_cache(maxsize=None)
+def _sa8d_kron_np(n: int) -> np.ndarray:
+    """The whole 2-D Hadamard of an n x n block as one float32 matrix
+    over raster-flattened blocks: rows (8x8 sub-block, u*8+v), columns
+    the n*n pixels (n = 4: the 4x4 transform itself)."""
+    if n == 4:
+        h = hadamard(4)
+        return np.kron(h, h).astype(np.float32)
+    hh = np.kron(hadamard(8), hadamard(8))       # (u*8+v, i*8+j)
+    m = n // 8
+    k = np.zeros((m * m * 64, n * n), np.float32)
+    for sy in range(m):
+        for sx in range(m):
+            r0 = (sy * m + sx) * 64
+            for i in range(8):
+                for j in range(8):
+                    k[r0:r0 + 64, (sy * 8 + i) * n + sx * 8 + j] = \
+                        hh[:, i * 8 + j]
+    return k
+
+
 @lru_cache(maxsize=None)
 def _kron(n: int, device: torch.device) -> torch.Tensor:
     """(n*n, n*n) 2-D Hadamard over raster-flattened n x n blocks."""
