@@ -8,7 +8,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      spill bytes and shared memory as ptxas reported them, and the
      search instances' SASS (VABSDIFF4 per current-row word, and per
      window row of the unrolled walk its SADs, funnel shifts and shared
-     loads); measure the issue rate per SM clock of VABSDIFF4, SHF and
+     loads), and check that the pair and 32-block search instances'
+     SASS equals the parent's build (PARENT_SASS: the 8- and 16-block
+     instances have a kernel of their own, and these must not change);
+     measure the issue rate per SM clock of VABSDIFF4, SHF and
      IMAD, with FFMA as the yardstick, and of the two 16-bit SADs (the
      packed vabsdiff2 and the scalar half-word vabsdiff the Main10
      search uses; ptxas expands both into integer instructions)
@@ -51,7 +54,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      single search at n per size, every output equal to the same path
      with the plain gather and search on the card, pred and the MC equal
      to mc_block_batch at the MVs; each kernel call of the path timed
-     alone on its own arguments beside its bound;
+     alone on its own arguments beside its bound, the 8- and 16-block
+     calls with their launch geometry (threads a block, units a warp
+     task, lanes a unit, R, resident blocks per SM, registers);
   3. card == CPU: the same clips encoded on the card and on the CPU give
      byte-identical streams (the CPU halves run in a spawned process
      from the start of the run, beside the build, phases 1-2, the card
@@ -190,6 +195,7 @@ Imports neither JAX nor the x265_tpu reference package.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import subprocess
@@ -1006,6 +1012,121 @@ def phase_search(bits=8, sad_lanes_per_sm=INT32_LANES_PER_SM,
     return aggs
 
 
+# The SASS of the main-path search instances (the 16-region pair search
+# and the 32-block single search, int_search_kernel<N, pair, R, kB>) as
+# the parent of the 8- and 16-block redesign built them (ff78177, with
+# kernels.NVCC_FLAGS, on an NVIDIA H100 80GB HBM3): sha256 of the opcode
+# sequence without modifiers ("ops", kernels.sass_opcodes) and with them
+# ("full"), one line per instruction. The redesign gave the small
+# instances a kernel of their own and must leave these unchanged. A
+# change of toolchain changes the SASS too: PARENT_SASS_NVCC is the last
+# line of `nvcc --version` on the machine that recorded the hashes. A
+# later change to int_search_kernel, or a new nvcc, records them anew
+# with sass_hashes.
+PARENT_SASS_NVCC = "Build cuda_12.9.r12.9/compiler.36037853_0"
+PARENT_SASS = {
+    "int_search_kernel<16, true, 1, 1>": {
+        "ops": "09f8362087b3fa40ec9c780f9fc8c4eee9ec52c7dd5d450e06c48713454b0c83",
+        "full": "ac5455a96d6513f11921e220dabc9f8d9ae4e50d4d245ab6e82795d893a46791"},
+    "int_search_kernel<16, true, 1, 2>": {
+        "ops": "1eb7d36ee763e1ff7417177fe555b37de5e63c30f5da3ffaeebe5594cde8a2a5",
+        "full": "1e8799dd3c9d51e43e5bd757c3e7b0b57d88e1fb6dabfee4bc97ba740656b20e"},
+    "int_search_kernel<16, true, 5, 1>": {
+        "ops": "767b4e15786d3fcc6fbea500f786699d7255c8d74cf56ea0bc52806a9bc1ff6a",
+        "full": "d934fde964d6e9e9f707642b221180da3b59d29b9acc855715049ce54430d77f"},
+    "int_search_kernel<16, true, 5, 2>": {
+        "ops": "0f4d2c85de766e727a6900edaaa005201a0f8d944804f3c278f7b9004a223969",
+        "full": "d2685d90ae84419df82deb90d41c24c7cb0d9f27a938a503469cac0f6cff44bb"},
+    "int_search_kernel<16, true, 6, 1>": {
+        "ops": "48e9602b256ce69a30d909b735dac5fd862b93c4d8522a211f0aee6916764260",
+        "full": "12f2acfb53e9124f3b4bbf1ff08fcbc9c582f655cb4f08d8b3cb2d214db1cdd0"},
+    "int_search_kernel<16, true, 6, 2>": {
+        "ops": "2f5a3d6e2ed11b2088048ba3798c3b7e8cd618c617417d978bcd0a204e1e7439",
+        "full": "a117245f0d227cc4e9fd4d9a60bbe652ebb16a39e924327457f413b4a14e0a2a"},
+    "int_search_kernel<16, true, 7, 1>": {
+        "ops": "a69aca3dd709113a1e98664d01b33883e4f39676c02da83c4b05cf5f14545ac6",
+        "full": "a2f772496c85564a3e56d97f844ac85d129b733ca965293f47cdbcfd20f47c73"},
+    "int_search_kernel<16, true, 7, 2>": {
+        "ops": "99a17a79e32f2e63f70e566efa27034be6006145fb1c6516e0d6934cca9d83fe",
+        "full": "e0e27659e39527ae4b88d45c7fa366761bc46ea76cf8dc8f599f9a9861c49795"},
+    "int_search_kernel<32, false, 1, 1>": {
+        "ops": "b1c7fa1bece1bf3785e42eab2d3b01f25765c3fcf672d6728f15b1d32b2d5889",
+        "full": "142095b876c7f2b08a4e3d0adcaaf91cee12e81fd4c063ae39ae1c25e9b223a7"},
+    "int_search_kernel<32, false, 1, 2>": {
+        "ops": "f404d677c9052b4d631329dabe90be2bd93b2c11a7ff0da7b744c633a9b5581d",
+        "full": "fa504573ffc14d9705ea9eac01e4e9c660369d1b87e1a8d1da9e737914ac5d8a"},
+    "int_search_kernel<32, false, 13, 1>": {
+        "ops": "0f3e756f5f30f85aaabce53037df0085cc6a3741c3ebd32a5db245d9dce931da",
+        "full": "9f2441db07503ba2c18321ce2d39a582ffcf5062696f1d551b15261d97504d00"},
+    "int_search_kernel<32, false, 5, 1>": {
+        "ops": "1b5edbda104048b683cc1d4ac5a70251a24e282b06fd4950cf6de9b55c64578d",
+        "full": "ab696a0fbc500201e8bc544b9b052c7f2c5a5a224f715566bca5b13ccfef6b2b"},
+    "int_search_kernel<32, false, 5, 2>": {
+        "ops": "9f5b0efaa0af32f81a91bb20d8d2a4af96cf185cd2fc20de1be618a7584e26d9",
+        "full": "4d35e9da8816eac918f6cdc0d6723c1afc6d2deb99fe8e9282889a577c6fa2dc"},
+    "int_search_kernel<32, false, 6, 2>": {
+        "ops": "9715707a4bda9b1887daf3a657d1486eeb1203e65849a610469ece3dfb6dac4a",
+        "full": "6d6459e4572c6d3b72a89e92d4711a3f46660fd51ab1566c98082e73bf9be0cd"},
+    "int_search_kernel<32, false, 7, 1>": {
+        "ops": "a9e2d3d1c954e631e2b0a7d1170677d75945faee8683c6edd0c18b4768f0e4e9",
+        "full": "71fa7cd684bdf91647db24fc44f0c72d1627605ac588fc0de5cc63989024b75d"},
+    "int_search_kernel<32, false, 7, 2>": {
+        "ops": "86c83a3440f8d163fef87218667599af816cd17d639f8ce31b20320b27bdc719",
+        "full": "2b59aefd3ada6c9df17a3dc9f7f766f8158e434586da9ccd5f8dca0366eb487b"}}
+SASS_KERNEL = re.compile(r"int_search_kernel<(\d+), (true|false), (\d+), "
+                         r"(\d+)>")
+
+
+def sass_hashes(kernels, so=None) -> dict:
+    """sha256 of the pair and 32-block search instances' SASS opcode
+    sequences (without and with modifiers) in the built int_search.cu
+    (or the library so)."""
+    out = {}
+    for full in (False, True):
+        for fn, ops in kernels.sass_opcodes("int_search", full=full,
+                                            so=so).items():
+            m = SASS_KERNEL.search(fn)
+            if m and (m.group(2) == "true" or m.group(1) == "32"):
+                out.setdefault(m.group(0), {})["full" if full else "ops"] = \
+                    hashlib.sha256("\n".join(ops).encode()).hexdigest()
+    return out
+
+
+def nvcc_version() -> str:
+    """The last line of `nvcc --version` (its build), or why there is
+    none."""
+    from x265_tpu_torch.kernels import _cuda_tool
+    try:
+        out = subprocess.run([_cuda_tool("nvcc"), "--version"],
+                             capture_output=True, text=True, timeout=60)
+    except OSError as e:
+        return f"no nvcc: {e}"
+    lines = out.stdout.strip().splitlines()
+    return lines[-1] if lines else f"nvcc --version gave rc {out.returncode}"
+
+
+def check_main_path_sass(kernels) -> dict:
+    """Fails when a pair or 32-block search instance's SASS differs from
+    its parent's build (PARENT_SASS), or an instance is missing or new,
+    naming the nvcc of the record and this one."""
+    got = sass_hashes(kernels)
+    bad = sorted(k for k in set(got) | set(PARENT_SASS)
+                 if got.get(k) != PARENT_SASS.get(k))
+    nvcc = nvcc_version()
+    print(json.dumps({"sass_check": "pair and 32-block search instances",
+                      "instances": len(got), "differ": bad, "nvcc": nvcc,
+                      "recorded_with": PARENT_SASS_NVCC}), flush=True)
+    if bad:
+        raise AssertionError(
+            f"the SASS of {bad} differs from the parent's build "
+            f"(PARENT_SASS, recorded with nvcc {PARENT_SASS_NVCC!r}; this "
+            f"nvcc: {nvcc!r})")
+    return got
+
+
+SMALL_KERNEL = re.compile(r"int_search_small_kernel<(\d+), (\d+), (\d+)>")
+
+
 def print_build_report(kernels) -> None:
     """ptxas's figures for every kernel instance, then the SASS of each
     search instance: its SAD instructions (VABSDIFF4 at 1 byte a sample;
@@ -1014,22 +1135,25 @@ def print_build_report(kernels) -> None:
     8-block at 1 byte a sample), and the unrolled
     walk over the window rows (from the first SAD to the last) counted
     per window row: SADs, IMADs, IADD3s, funnel shifts, shared loads
-    and all instructions."""
+    and all instructions (the 8- and 16-block kernel,
+    int_search_small_kernel<N, R, kB>, alike). Returns, per small
+    kernel instance, its walk's instructions by pipe (walk_pipes)."""
+    walks = {}
     for name in kernels.sources():
         for row in kernels.resource_usage(name):
             print(json.dumps({"ptxas": name, **row}), flush=True)
     for fn, ops in kernels.sass_opcodes("int_search", full=True).items():
-        m = re.search(r"int_search_kernel<(\d+), (true|false), (\d+), "
-                      r"(\d+)>", fn)
+        m = SASS_KERNEL.search(fn) or SMALL_KERNEL.search(fn)
         if not m:
             continue
-        n, r, kb = int(m.group(1)), int(m.group(3)), int(m.group(4))
+        name = m.group(0)
+        n, r, kb = (int(m.group(i)) for i in (1, m.lastindex - 1,
+                                              m.lastindex))
         # the SAD's opcode with its modifiers: VIMNMX without .U16x2 is
         # a scalar min or max of the index and fold arithmetic
         sad = "VABSDIFF4" if kb == 1 else "VIMNMX.U16x2"
         base = [op.split(".")[0] for op in ops]
         cnt = Counter(base)
-        name = f"int_search_kernel<{n}, {m.group(2)}, {r}, {kb}>"
         sads = [i for i, op in enumerate(ops)
                 if op == sad or op.startswith(sad + ".")]
         if not sads:
@@ -1049,7 +1173,28 @@ def print_build_report(kernels) -> None:
                              "shf": walk["SHF"] / rows,
                              "lds": walk["LDS"] / rows},
             "walk_top": walk.most_common(10),
-            "top": cnt.most_common(10)}), flush=True)
+            "top": cnt.most_common(10),
+            "walk_pipes": walk_pipes(walk)}), flush=True)
+        if m.re is SMALL_KERNEL:
+            walks[name] = walk_pipes(walk)
+    return walks
+
+
+# opcodes of an unrolled walk that do not issue to the integer ALU pipe:
+# IMAD runs on the FMA pipe, the rest on the memory and control units
+NOT_ALU = {"IMAD": "fma", "LDS": "mem", "STS": "mem", "LDG": "mem",
+           "SHFL": "mem", "REDUX": "mem", "MATCH": "mem", "BRA": "other",
+           "NOP": "other", "BAR": "other"}
+
+
+def walk_pipes(walk: Counter) -> dict:
+    """A walk's instruction count by pipe: alu (VABSDIFF4, VIMNMX, SHF,
+    IADD3, LOP3, ...), fma (IMAD), mem (shared loads, shuffles,
+    reductions) and other."""
+    out = Counter()
+    for op, k in walk.items():
+        out[NOT_ALU.get(op, "alu")] += k
+    return {p: out[p] for p in ("alu", "fma", "mem", "other")}
 
 
 RATE_OPS = ("vabsdiff4", "shf", "imad", "vabsdiff4_and_shf", "ffma",
@@ -1815,7 +1960,59 @@ class _Recorder:
         return self.fn(*args, **kw)
 
 
-def phase_me_windowed(rates) -> dict:
+SMALL_GEOMETRY = ("threads_a_block", "units_a_task", "lanes_a_unit", "R",
+                  "blocks_per_sm", "registers", "smem_bytes", "grid",
+                  "tasks")
+
+
+def small_geometry(win, cur_p, n, side, lead) -> dict:
+    """The launch geometry the 8- and 16-block search gives these
+    arguments (csrc/int_search.cu int_search_small_geometry): threads a
+    block, units a task (a warp's group), lanes a unit, R, resident
+    blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers a thread, shared memory a block, grid blocks, tasks; and
+    the resident warps per SM that follow."""
+    import ctypes
+    from x265_tpu_torch import kernels
+    fn = kernels.load("int_search").int_search_small_geometry
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    info = (ctypes.c_int * len(SMALL_GEOMETRY))()
+    w = cur_p.shape[1]
+    err = fn(win.element_size(), n, win.shape[0], win.shape[1], lead, side,
+             w, w // n, info)
+    if err:
+        raise RuntimeError(f"int_search_small_geometry: CUDA error {err}")
+    geo = dict(zip(SMALL_GEOMETRY, info))
+    geo["warps_per_sm"] = geo["blocks_per_sm"] * geo["threads_a_block"] // 32
+    return geo
+
+
+def walk_issue(geo, n, side, kb, walks, alu_lanes, sms, clock_hz,
+               ms) -> dict | None:
+    """The time an 8- or 16-block search's walks take at the integer
+    ALU's measured issue rate: each of the call's tasks (one warp's
+    units) runs ceil(items kL / lanes a unit) walks a lane, where items
+    = side ceil(side / R) and kL lanes make a candidate (2 at 10 bits
+    and n = 16), each of the SASS walk's ALU instructions (walks, from
+    print_build_report) once; over every SM at alu_lanes / 32 warp
+    instructions a clock. Beside it the measured ms and their ratio: a
+    ratio near 1 is an issue limit, far under it latency or the work
+    around the walk."""
+    name = f"int_search_small_kernel<{n}, {geo['R']}, {kb}>"
+    if not walks or name not in walks:
+        return None
+    kl = max(1, n * kb // 16)
+    items = side * -(-side // geo["R"])
+    loops = -(-items * kl // geo["lanes_a_unit"])
+    alu = walks[name]["alu"] * loops * geo["tasks"]
+    alu_ms = alu / (sms * alu_lanes / 32 * clock_hz) * 1e3
+    return {"instance": name, "walk_alu_per_task": walks[name]["alu"] * loops,
+            "walk_fma_per_task": walks[name]["fma"] * loops,
+            "alu_warp_instructions": alu, "alu_ms": alu_ms,
+            "alu_share": alu_ms / ms}
+
+
+def phase_me_windowed(rates, walks=None) -> dict:
     """me_size_windowed (the reference's windowed ME of one block size,
     x265_tpu/ops/me_win.py:402) at 1080p, its kernels and its MC.
 
@@ -1833,7 +2030,12 @@ def phase_me_windowed(rates) -> dict:
     mc_block_batch_ds must equal mc_block_batch at the returned MVs.
     Each kernel call of the path is then timed alone on its own
     arguments (device ms, kernel and plain, per call and per frame of
-    the three sizes) beside its bound. Returns, per bit depth, the
+    the three sizes) beside its bound; an 8- or 16-block call also
+    beside its walk's issue time (walk_issue: the unrolled walk's ALU
+    instructions from the SASS (walks, print_build_report) for every
+    item of every task, at the VABSDIFF4 chain's measured warp
+    instructions a clock per SM, on every SM; the staging, packing and
+    selection around the walk left out). Returns, per bit depth, the
     launches and the per-instance numbers for the kernels line."""
     from x265_tpu_torch.enc.encoder import pad_plane
     from x265_tpu_torch.ops import me_win
@@ -2015,8 +2217,16 @@ def phase_me_windowed(rates) -> dict:
             px_cand = nb * n * n * side * side
             ops_ms = px_cand / spp / lane_ops_per_s * 1e3
             bytes_ms = nbytes / BYTES_PER_S * 1e3
+            geo = small_geometry(win, cur_p, n, side, lead) \
+                if n in (8, 16) else None
+            issue = walk_issue(geo, n, side, win.element_size(), walks,
+                               rates["vabsdiff4"], sms, clock_hz,
+                               t["kernel"][0]) if geo else None
             calls.append({"kernel": f"int_search_{sfx}", "n": n,
                           "side": side, "lead": lead, "units": nb,
+                          "geometry": geo, "walk_issue": issue,
+                          "bound_share": max(ops_ms, bytes_ms) /
+                          t["kernel"][0],
                           "ms": t["kernel"][0], "ms_spread": t["kernel"][1:],
                           "plain_ms": t["plain"][0], "library_ms": None,
                           "bound_ms": max(ops_ms, bytes_ms),
@@ -2940,7 +3150,7 @@ def kernel_entries(launches, gather, search, me_windowed) -> list:
                 "max_abs_err": me_windowed[bits]["max_abs_err"],
                 "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-                "library_ms": None})
+                "library_ms": None, "geometry": c["geometry"]})
     return entries
 
 
@@ -2970,7 +3180,8 @@ def main() -> int:
                       "card": card, "kernels": kernels.sources(),
                       "nvcc_s": nvcc_s, "native_cabac_s": gxx_s,
                       "build_s": time.perf_counter() - t0}), flush=True)
-    print_build_report(kernels)
+    walks = print_build_report(kernels)
+    check_main_path_sass(kernels)
     done("build")
 
     rates = phase_int_rates()
@@ -2992,7 +3203,7 @@ def main() -> int:
     search["cli_main10"] = search.pop("main10")
     log("kernel == plain at every main-path shape")
     done("kernels")
-    me_windowed = phase_me_windowed(rates)
+    me_windowed = phase_me_windowed(rates, walks)
     log("me_size_windowed at 1080p: kernel path == plain path, pred == MC")
     done("me_windowed")
     cards = phase_card_halves()

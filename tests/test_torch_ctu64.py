@@ -19,9 +19,10 @@ encode are shared by the module-scoped fixture.
 A second stream runs the slowest preset under the same tune,
 --preset placebo --tune zerolatency (CTU 64, RDOQ, 5 references,
 merge 5, me_range 12), on the same clip: 1 I + 5 P in one chunk, so the
-last P frame has five distinct references. Its I frame is the medium
-stream's program (the reference's I frame uses none of RDOQ, the
-references or the search range). Inputs are made from
+last P frame has five distinct references. Both streams' I frames go
+through the port's device wavefront and the reference's host recon
+(tests/test_torch_encoder.py reference_i_frame), whose bytes are its
+wavefront's. Inputs are made from
 seeds with numpy. Tolerance: exact equality everywhere (integer
 outputs; the float32 RD costs bit for bit)."""
 
@@ -50,6 +51,7 @@ from x265_tpu_torch.enc import pgop_gpu as port_pgop
 from x265_tpu_torch.ops import deblock as port_db
 from x265_tpu_torch.ops import sao_gpu as port_sao
 from chip_smoke import medium_clip
+from test_torch_encoder import reference_i_frame
 from test_torch_fma import assert_same_bits, float_comparison_operands
 
 torch.set_num_threads(2)
@@ -352,13 +354,26 @@ def medium_config(h=H, w=W):
     return cfg
 
 
-def _encode(enc, frames):
-    """I frame at QP - 3 through the device recon, then pipelined P
-    chunks of 2 (need_recon for the decode check)."""
-    r0 = enc.encode_frame(*frames[0], qp=enc.cfg.qp - 3,
-                          use_device_recon=True)
+def _i_frame(enc, frame):
+    """The I frame at QP - 3, made the reference of what follows: the
+    port's through its device wavefront, the reference's through its
+    host recon, whose bytes, syntax and recon are its wavefront's, as a
+    reference stack (tests/test_torch_encoder.py reference_i_frame: the
+    reference traces no CTU-64 wavefront and one P-chunk program less
+    here; tests/test_torch_main10.py holds the port's wavefront to the
+    reference's at CTU 64)."""
+    if isinstance(enc, RefEncoder):
+        return reference_i_frame(enc, frame, enc.cfg.qp - 3)
+    r0 = enc.encode_frame(*frame, qp=enc.cfg.qp - 3, use_device_recon=True)
     enc.ref = r0.device_ref
     enc.poc = 0
+    return r0
+
+
+def _encode(enc, frames):
+    """The I frame (_i_frame), then pipelined P chunks of 2 (need_recon
+    for the decode check)."""
+    r0 = _i_frame(enc, frames[0])
     return [r0] + enc.encode_pgop_pipelined(frames[1:], chunk=2,
                                             need_recon=True)
 
@@ -453,10 +468,7 @@ def placebo_streams():
     frames = medium_clip(6)
 
     def encode(enc):
-        r0 = enc.encode_frame(*frames[0], qp=enc.cfg.qp - 3,
-                              use_device_recon=True)
-        enc.ref = r0.device_ref
-        enc.poc = 0
+        r0 = _i_frame(enc, frames[0])
         return [r0] + enc.encode_pgop_pipelined(frames[1:], chunk=5,
                                                 need_recon=True)
 

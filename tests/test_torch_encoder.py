@@ -2,8 +2,10 @@
 deblock, I frame at QP 29 through the device recon, then pipelined P
 chunks of 2) encoded by x265_tpu_torch on the CPU must give streams
 byte-identical to x265_tpu's, which x265_tpu.decoder decodes to the
-port's recon. Frames and config follow tests/test_pipelined.py, so the
-reference's compiled programs can come from the persistent cache.
+port's recon (the reference codes its I frame on its host recon and
+hands it on as a reference stack: reference_i_frame). Frames and config
+follow tests/test_pipelined.py, so the reference's compiled programs can
+come from the persistent cache.
 Beside it, one 2-frame P chunk of x265_tpu_torch.enc.pgop_gpu against
 x265_tpu.enc.pgop_tpu, both predicting from the reference package's own
 I-frame recon: every FramePSyntax field and recon sample (the same
@@ -21,9 +23,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from x265_tpu.common.params import EncoderConfig as RefConfig
 from x265_tpu.decoder import decode_annexb
 from x265_tpu.enc import IntraEncoder as RefEncoder
+from x265_tpu.enc.intra_recon import DeviceRef as RefDeviceRef
 from x265_tpu.enc.pgop_tpu import encode_pgop_tpu
 from x265_tpu.enc.weightp import analyse_gop_weights
 from x265_tpu_torch.common.params import EncoderConfig
@@ -47,14 +52,49 @@ def _frames(n, h=64, w=96, seed=11):
     return [(np.roll(base, 2 * i, axis=1), cb, cr) for i in range(n)]
 
 
+def reference_stack(recon, rcfg):
+    """The reference's I-frame recon as the (R, h, w) reference stack
+    (R = num_refs, every slot the I frame, narrow dtype) that its P-chunk
+    program carries from chunk to chunk. The program makes that very
+    stack of a single plane (pgop_tpu's stack_init duplicates it; ties
+    go to the lowest refIdx, so no duplicate slot is chosen), so a chunk
+    codes the same from either, and a stream's first chunk runs the
+    program of its later ones: one P-chunk program a configuration is
+    traced and compiled, not two."""
+    dt = jnp.uint8 if rcfg.bit_depth == 8 else jnp.uint16
+    r = max(int(rcfg.num_refs), 1)
+    return RefDeviceRef(*(jnp.broadcast_to(jnp.asarray(np.asarray(p), dt),
+                                           (r,) + np.shape(p))
+                          for p in (recon.y, recon.cb, recon.cr)))
+
+
+def reference_i_frame(enc, frame, qp):
+    """The reference encoder's I frame at qp on its host recon
+    (use_device_recon=False), made the reference of its next P chunk as
+    reference_stack. The host recon's bytes and recon are those of the
+    reference's device wavefront (its tests/test_intra_recon_tpu.py holds
+    the two equal, and its encode_hier_gop relies on it), so a stream
+    test holds the port's wavefront to the reference's bytes without
+    the reference tracing and compiling a wavefront program per geometry
+    (about 200 s each from an empty JAX cache);
+    tests/test_torch_intra.py holds it to the reference's wavefront
+    itself, tests/test_torch_main10.py at CTU 64 and 10 bits. The I
+    frame has set one distinct reference (ref_avail), which a stacked
+    reference keeps, as it keeps the plane's."""
+    r0 = enc.encode_frame(*frame, qp=qp, use_device_recon=False)
+    enc.ref = reference_stack(r0.recon, enc.cfg)
+    enc.poc = 0
+    return r0
+
+
 @pytest.mark.parametrize("h,w", [(64, 96), (72, 96)])
 def test_ippp_stream_matches_reference(h, w):
     frames = _frames(7, h, w)
     rcfg = RefConfig(width=w, height=h, qp=32, deblock=True)
     enc = RefEncoder(rcfg)
-    r0 = enc.encode_frame(*frames[0], qp=rcfg.qp - 3, use_device_recon=True)
-    enc.ref = r0.device_ref
-    enc.poc = 0
+    # the reference's I frame on its host recon, the port's on its
+    # device wavefront
+    r0 = reference_i_frame(enc, frames[0], rcfg.qp - 3)
     # with its recon: the reference's P-chunk program is then the one
     # test_p_chunk_matches_reference runs at 64x96
     rs = enc.encode_pgop_pipelined(frames[1:], chunk=2, need_recon=True)
@@ -159,7 +199,7 @@ def test_p_chunk_matches_reference():
     rcfg = RefConfig(width=w, height=h, qp=32, deblock=True)
     cfg = config_from_dict(dataclasses.asdict(rcfg))
     enc = RefEncoder(rcfg)
-    r0 = enc.encode_frame(*frames[0], qp=29, use_device_recon=True)
+    r0 = enc.encode_frame(*frames[0], qp=29, use_device_recon=False)
     wps = analyse_gop_weights(frames[1:], frames[0])
     wvecs = np.stack([wp.vec() for wp in wps])
     assert any(wp.luma_on for wp in wps)
@@ -168,9 +208,9 @@ def test_p_chunk_matches_reference():
         return np.stack([f[k] for f in frames[1:]])
 
     syns, recons, _ = encode_pgop_tpu(stack(0), stack(1), stack(2),
-                                      r0.device_ref, rcfg, 32,
-                                      need_recon=True, me_range=rcfg.me_range,
-                                      weights=wvecs)
+                                      reference_stack(r0.recon, rcfg), rcfg,
+                                      32, need_recon=True,
+                                      me_range=rcfg.me_range, weights=wvecs)
     ref = device_ref_from_numpy(r0.recon.y, r0.recon.cb, r0.recon.cr,
                                 device="cpu")
     pend = submit_pgop_gpu(stack(0), stack(1), stack(2), ref, cfg, 32,

@@ -244,6 +244,26 @@ def test_int_search_u16_kernels_match_plain_on_gpu(case, me_range, plane):
         assert int(got[1].abs().max()) == 0
 
 
+# planes of the 8- and 16-block search beyond SEARCH_PLANES' (per n):
+# odd block counts (165 8-blocks, 35 16-blocks), so the last warp task
+# is partial whenever a task holds more than one unit (2 at side 13),
+# and a single block
+SMALL_PLANES = {"ragged": {8: (88, 120), 16: (80, 112)},
+                "single": {8: (8, 8), 16: (16, 16)}}
+
+
+def _shifted(win, shift):
+    """win copied to a storage that starts `shift` elements past an
+    aligned address (shift 0: win itself)."""
+    if not shift:
+        return win
+    big = torch.zeros(win.numel() + shift, dtype=win.dtype,
+                      device=win.device)
+    v = big[shift:].view(win.shape)
+    v.copy_(win)
+    return v
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ("random", "near_flat", "flat", "curmax",
                                   "cur0"))
@@ -252,20 +272,26 @@ def test_int_search_u16_kernels_match_plain_on_gpu(case, me_range, plane):
 def test_int_search_8_and_16_blocks_match_plain_on_gpu(case, bits, n):
     """The single search's 8- and 16-block instances (int_search_u8 and
     int_search_u16 at n = 8 and 16, me_size_windowed's) against the plain
-    version, exactly, on both planes, at sides 5-25 (13: me_size_windowed's
-    default radius 6) and leads 0 (its windows) and 4. Each launch moves
-    the wrapper's count, its uint16 count and its count for n by one;
-    ties pick the lowest index."""
+    version, exactly, at sides 5-25 (13: me_size_windowed's default
+    radius 6) and leads 0 (its windows) and 4, on both SEARCH_PLANES
+    (the larger one strides the grid), on a plane whose last task is
+    partial, on a single block, and with the small plane's windows one
+    element past an aligned address. Each launch moves the wrapper's
+    count, its uint16 count and its count for n by one; ties pick the
+    lowest index."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
     fn = port.int_search_windows
-    for plane in ("small", "strided"):
-        h, w = SEARCH_PLANES[plane][1]
+    planes = [(p, SEARCH_PLANES[p][1], 0) for p in ("small", "strided")] + \
+        [(p, SMALL_PLANES[p][n], 0) for p in ("ragged", "single")] + \
+        [("small_unaligned", SEARCH_PLANES["small"][1], 1)]
+    for plane, (h, w), shift in planes:
         for side in (5, 11, 13, 15, 21, 25):
             for lead in (0, 4):
                 win, cur, pen = _search_inputs(case, h, w, n, side,
                                                seed=side + lead, bits=bits,
                                                lead=lead)
+                win = _shifted(win, shift)
                 penx, peny = _pens(pen, pen.shape[1], side)
                 before = (fn.launches, fn.launches_u16, fn.launches_n[n],
                           fn.launches_n_u16[n])

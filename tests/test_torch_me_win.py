@@ -328,8 +328,10 @@ def test_int_search_tie_keeps_first_candidate():
     assert cost.tolist() == [2 * n * n] * 3
 
 
+@functools.lru_cache(maxsize=None)
 def _search_inputs(weighted, seed=3):
-    """The reference's own search inputs at 64x96, me_range 10: its
+    """The reference's own search inputs at 64x96, me_range 10 (made
+    once per module for each (weighted, seed), read only): its
     16-region windows (gather_windows_ds at clamped random seeds), the
     8-block windows cut from them as its me_all_sizes cuts them, the
     32-block windows, and the search plane (weight-compensated by the
@@ -401,18 +403,24 @@ def test_int_search_pair_windows_matches_reference(weighted):
         np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
 
+@pytest.mark.parametrize("lead", (0, 4))
+@pytest.mark.parametrize("n", (8, 16, 32))
 @pytest.mark.parametrize("weighted", (False, True))
-def test_int_search_windows_matches_reference(weighted):
-    """The 32-block search over its windows equals the reference's
-    int_search_vec on its lanes, exactly."""
+def test_int_search_windows_matches_reference(weighted, n, lead):
+    """The single search over its windows (int_search_windows, on the
+    CPU its plain version int_search_windows_plain) equals the
+    reference's int_search_vec on its lanes, exactly, for 8-, 16- and
+    32-blocks at lead 4 (me_all_sizes' windows) and lead 0
+    (me_size_windowed's): the 8-block windows cut from the 16-region
+    ones, the 16-region windows, the 32-block windows."""
     plane, wins, pens, side = _search_inputs(weighted, seed=4)
-    px, py = pens[32]
+    px, py = pens[n]
     jc, ji = ref.int_search_vec(
-        jnp.asarray(wins[32].transpose(1, 2, 0)),
-        jnp.asarray(_lanes_np(plane, 32)), jnp.asarray(px), jnp.asarray(py),
-        32, side, lead=4)
-    tc, ti = port.int_search_windows(*_t(wins[32], plane, px, py), 32, side,
-                                     lead=4)
+        jnp.asarray(wins[n].transpose(1, 2, 0)),
+        jnp.asarray(_lanes_np(plane, n)), jnp.asarray(px), jnp.asarray(py),
+        n, side, lead=lead)
+    tc, ti = port.int_search_windows(*_t(wins[n], plane, px, py), n, side,
+                                     lead=lead)
     np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
     np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
 
@@ -502,3 +510,90 @@ def test_gather_windows_rejects_bad_inputs():
         port.gather_windows(src, ys.long(), ys.long(), 8)
     with pytest.raises(ValueError):
         port.gather_windows(src, ys, ys, 41)
+
+
+def test_sass_check_holds_the_main_path_instances(monkeypatch):
+    """chip_smoke.check_main_path_sass on a stand-in for the kernels
+    module (a real listing needs nvcc and cuobjdump): it hashes
+    the pair and 32-block instances only (not the 8- and 16-block
+    kernel, nor another function), passes when every hash equals
+    PARENT_SASS, and fails naming an instance whose opcodes, or whose
+    modifiers alone, changed, one that is missing and one that is
+    new."""
+    import chip_smoke as cs
+
+    committed = cs.PARENT_SASS
+    base = {
+        "void (anonymous namespace)::int_search_kernel<16, true, 5, 1>"
+        "(unsigned char const*)": ["LDS.128", "VABSDIFF4.U8.ACC", "EXIT"],
+        "void (anonymous namespace)::int_search_kernel<32, false, 13, 2>"
+        "(unsigned char const*)": ["VIMNMX.U16x2", "IMAD", "EXIT"],
+        "void (anonymous namespace)::int_search_small_kernel<8, 13, 1>"
+        "(unsigned char const*)": ["VABSDIFF4.U8.ACC", "EXIT"],
+        "void gather_windows_kernel<1>(unsigned char const*)": ["EXIT"]}
+
+    class Kernels:
+        def __init__(self, listing):
+            self.listing = listing
+
+        def sass_opcodes(self, name, full=False, so=None):
+            assert name == "int_search"
+            return {f: ops if full else [o.split(".")[0] for o in ops]
+                    for f, ops in self.listing.items()}
+
+    want = cs.sass_hashes(Kernels(base))
+    assert sorted(want) == ["int_search_kernel<16, true, 5, 1>",
+                            "int_search_kernel<32, false, 13, 2>"]
+    monkeypatch.setattr(cs, "PARENT_SASS", want)
+    assert cs.check_main_path_sass(Kernels(base)) == want
+    pair = next(f for f in base if "16, true" in f)
+    for listing, bad in (
+            ({**base, pair: ["LDS.128", "IADD3", "EXIT"]}, "16, true"),
+            ({**base, pair: ["LDS.64", "VABSDIFF4.U8.ACC", "EXIT"]},
+             "16, true"),
+            ({f: o for f, o in base.items() if f != pair}, "16, true"),
+            ({**base, pair.replace("5, 1", "6, 1"): ["EXIT"]}, "6, 1")):
+        with pytest.raises(AssertionError, match=bad):
+            cs.check_main_path_sass(Kernels(listing))
+    # the committed record: every pair and 32-block instance the search
+    # compiles (R of PairR, SingleR1 and SingleR2), both hashes each
+    assert sorted(committed) == sorted(
+        [f"int_search_kernel<16, true, {r}, {kb}>" for r in (1, 5, 6, 7)
+         for kb in (1, 2)] +
+        [f"int_search_kernel<32, false, {r}, 1>" for r in (1, 5, 7, 13)] +
+        [f"int_search_kernel<32, false, {r}, 2>" for r in (1, 5, 6, 7)])
+    assert all(sorted(v) == ["full", "ops"] for v in committed.values())
+
+
+def test_walk_issue_counts_the_walks_alu_instructions():
+    """chip_smoke.walk_pipes sorts a walk's opcodes by pipe, and
+    walk_issue gives the time an 8- or 16-block call's walks take at a
+    measured ALU rate: tasks x walks a lane x the walk's ALU
+    instructions, over every SM."""
+    from collections import Counter
+
+    import chip_smoke as cs
+
+    pipes = cs.walk_pipes(Counter({"VABSDIFF4": 10, "SHF": 4, "IMAD": 3,
+                                   "LDS": 5, "REDUX": 1, "BRA": 1}))
+    assert pipes == {"alu": 14, "fma": 3, "mem": 6, "other": 1}
+    walks = {"int_search_small_kernel<8, 13, 1>": pipes,
+             "int_search_small_kernel<16, 13, 2>": pipes,
+             "int_search_small_kernel<8, 5, 1>": pipes}
+    # side 13 at R 13: 13 items on 13 lanes, one walk a lane; 100 tasks
+    # at 2 warp instructions a clock (64 lanes) on 2 SMs at 1 GHz
+    geo = {"R": 13, "lanes_a_unit": 13, "tasks": 100}
+    got = cs.walk_issue(geo, 8, 13, 1, walks, 64.0, 2, 1e9, 0.001)
+    assert got["instance"] == "int_search_small_kernel<8, 13, 1>"
+    assert got["alu_warp_instructions"] == 1400
+    assert got["alu_ms"] == pytest.approx(1400 / 4e9 * 1e3)
+    assert got["alu_share"] == pytest.approx(0.35)
+    # 2 lanes a candidate at 10 bits and n = 16: 26 lanes, one walk each
+    geo16 = {"R": 13, "lanes_a_unit": 26, "tasks": 100}
+    assert cs.walk_issue(geo16, 16, 13, 2, walks, 64.0, 2, 1e9,
+                         1.0)["walk_alu_per_task"] == 14
+    # side 25 at R 5: 125 items on 25 lanes, 5 walks a lane
+    geo5 = {"R": 5, "lanes_a_unit": 25, "tasks": 10}
+    assert cs.walk_issue(geo5, 8, 25, 1, walks, 64.0, 2, 1e9,
+                         1.0)["walk_alu_per_task"] == 70
+    assert cs.walk_issue(geo, 8, 13, 1, {}, 64.0, 2, 1e9, 1.0) is None

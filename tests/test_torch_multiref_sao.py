@@ -12,8 +12,11 @@ two whole streams against x265_tpu's:
       content, 1 I + 4 P in chunks of 2.
 
 Each stream is byte-identical to the reference's and x265_tpu.decoder
-decodes it to the port's recon. One reference encode and one port
-encode per configuration are shared by the module-scoped fixtures.
+decodes it to the port's recon (the port's I frame through its device
+wavefront, the reference's through its host recon, handed on as a
+reference stack: tests/test_torch_encoder.py reference_i_frame). One
+reference encode and one port encode per configuration are shared by
+the module-scoped fixtures.
 Tolerance: exact equality everywhere (integer outputs)."""
 
 import dataclasses
@@ -32,6 +35,7 @@ from x265_tpu.enc import IntraEncoder as RefEncoder
 from x265_tpu.enc import pgop_tpu as ref_pgop
 from x265_tpu.ops import me_win as ref_me
 from x265_tpu.ops import sao_tpu as ref_sao
+from test_torch_encoder import reference_i_frame
 from x265_tpu_torch.common.tables import lambda2_from_qp
 from x265_tpu_torch.convert import config_from_dict
 from x265_tpu_torch.enc import IntraEncoder
@@ -298,12 +302,18 @@ CONFIGS = {
 
 
 def _encode(enc, frames):
-    """I frame at QP - 3 through the device recon, then pipelined P
-    chunks of 2 (need_recon for the decode check)."""
-    r0 = enc.encode_frame(*frames[0], qp=enc.cfg.qp - 3,
-                          use_device_recon=True)
-    enc.ref = r0.device_ref
-    enc.poc = 0
+    """I frame at QP - 3, then pipelined P chunks of 2 (need_recon for
+    the decode check). The port's I frame goes through its device
+    wavefront, the reference's through its host recon, whose bytes and
+    recon are its wavefront's, as a reference stack
+    (tests/test_torch_encoder.py reference_i_frame)."""
+    if isinstance(enc, RefEncoder):
+        r0 = reference_i_frame(enc, frames[0], enc.cfg.qp - 3)
+    else:
+        r0 = enc.encode_frame(*frames[0], qp=enc.cfg.qp - 3,
+                              use_device_recon=True)
+        enc.ref = r0.device_ref
+        enc.poc = 0
     return [r0] + enc.encode_pgop_pipelined(frames[1:], chunk=2,
                                             need_recon=True)
 

@@ -111,16 +111,56 @@
 // each of its R candidates. A 32-block SAD at 10 bits stays under 2^20,
 // so the (1 << 30, 0) start key and the 64-bit keys hold as at 8 bits.
 //
-// The single search runs 8-, 16- and 32-blocks (N = 8, 16, 32; the
-// 8- and 16-block instances serve me_size_windowed, whose windows have
-// lead 0). A lane takes at most 4 words of a current row: a 16-block
-// row is 1 lane at 8 bits and 2 at 10, an 8-block row 1 lane of 2
-// words at 8 bits (8 bytes, 3 window words and 2 funnel shifts a row)
-// and 1 lane of 4 words at 10. The packed 16-bit halves hold as for the
-// 32-block: the sums are unpacked every N / 2 rows, so a half holds 4
-// samples of a row over at most 16 rows (8 at N = 16, 4 at N = 8), at
-// most 64 x 1023 = 65,472.
+// The single search runs 8-, 16- and 32-blocks (N = 8, 16, 32). The
+// 32-blocks run int_search_kernel as above. The 8- and 16-blocks serve
+// me_size_windowed (windows of lead 0; 32,640 8-blocks or 8,160
+// 16-blocks a 1080p frame, side 13 at its radius 6), whose units are
+// small: 13 candidate columns of 8 or 16 rows. They run a kernel of
+// their own, int_search_small_kernel, whose geometry follows from that:
 //
+// - One unit inside one warp. A unit's lanes are `side` dx columns (x2
+//   lanes at 10 bits and N = 16, where a row is 8 words), each walking
+//   R consecutive dy, R up to 13 at both sample widths (at side 13 one
+//   dy group: no candidate row runs twice); a warp holds as many units
+//   as fit (2 at side 13, 26 lanes of 32; 1 at 10 bits and N = 16),
+//   and a lane loops over its items where a side needs more than 32.
+// - Selection inside the warp. Each lane keeps its first least cost
+//   and index; two REDUX over the unit's lanes (least cost, then least
+//   index with it) and the start key (1 << 30, 0) give the result, which
+//   the unit's first lane writes. No shared keys, no atomics, and no
+//   barrier: each warp runs its own tasks (a task is the warp's units)
+//   through a ring of 3 staging slots of its own, with __syncwarp only.
+// - Staging at the sample width, ahead of use. A task's windows are one
+//   contiguous range, copied with 16-byte cp.async from the 16-byte
+//   boundary below it whatever the windows' alignment, and its
+//   penalties with 4-byte cp.async, two tasks ahead. Its current
+//   blocks are read from the int32 plane a task ahead into registers
+//   (one row piece a lane: N kL pieces a unit, which bounds the units a
+//   task to 32 / (N kL)), packed to bytes or half-words and stored to
+//   the slot after the task before it is searched; at 10 bits the same
+//   pass sums each lane's packed current words over the block's rows
+//   (shuffles across the rows' lanes). At 10 bits a lane's row piece
+//   starts on an even byte: the warp writes a second copy of the task's
+//   windows one sample later (one funnel shift a word), so every lane
+//   reads its 4 window words of a row aligned, from one copy or the
+//   other, with no funnel shift and no fifth word in the walk.
+// - Blocks of 4 warps, persistent: as many as are resident (4-6 a SM,
+//   16-24 warps, by the registers of the instance), striding over the
+//   tasks.
+// - The walk is search_item's, for one output: folds each candidate as
+//   soon as its last row is in (at most min(R, N) sums live); at 10
+//   bits one packed sum per candidate covers all N rows (a half holds 4
+//   samples of a row over N <= 16 rows, 64 x 1023 < 2^16 at most),
+//   started from the window prefix less the current sum so that the
+//   finished sum less the prefix is the packed SAD. Two lanes of a
+//   candidate add their SADs with one shuffle each after the walk.
+//
+// What bounds it (PERF.md, phase 2b of chip_smoke.py): integer issue
+// again, VABSDIFF4 (or VIMNMX and IMAD) with the walk's funnel shifts
+// (8 bits) and folds on the SM's 64 integer lanes, 6 of 32 lanes idle
+// at side 13, and, at 8 bits and N = 8, the copy of 25 MB (the int32
+// current plane a third of it) beside it.
+
 // Interface: plain C entry points bound through ctypes. A call launches
 // on the given stream, allocates nothing, and returns cudaGetLastError().
 
@@ -336,9 +376,8 @@ __device__ __forceinline__ void search_item(
   constexpr int kL = Lanes<N, kB>::kL;    // lanes per candidate
   constexpr int kCW = Lanes<N, kB>::kCW;  // words in a current row
   constexpr int kLW = Lanes<N, kB>::kLW;  // words of a row per lane
-  static_assert(!kPair || (kL <= 2 && kLW == 4),
-                "a pair lane holds whole 8-blocks");
-  static_assert(kB == 1 || kLW == 4, "a 2-byte lane takes 8 samples");
+  static_assert(kLW == 4, "a lane takes 4 words of a row");
+  static_assert(!kPair || kL <= 2, "a pair lane holds whole 8-blocks");
   // partial sums per candidate: the pair's four quadrants (one lane)
   // or its lane's top and bottom 8-block (two lanes); the 32-block's
   // top and bottom 16 rows at 2 bytes a sample (a packed sum is
@@ -392,17 +431,11 @@ __device__ __forceinline__ void search_item(
 #pragma unroll
   for (int r = 0; r < R + N - 1; ++r) {
     if (r < N) {
-      if constexpr (kLW == 4) {
-        const uint4 v = *reinterpret_cast<const uint4*>(crow + r * kCW);
-        c[r % R][0] = v.x;
-        c[r % R][1] = v.y;
-        c[r % R][2] = v.z;
-        c[r % R][3] = v.w;
-      } else {
-        const uint2 v = *reinterpret_cast<const uint2*>(crow + r * kCW);
-        c[r % R][0] = v.x;
-        c[r % R][1] = v.y;
-      }
+      const uint4 v = *reinterpret_cast<const uint4*>(crow + r * kCW);
+      c[r % R][0] = v.x;
+      c[r % R][1] = v.y;
+      c[r % R][2] = v.z;
+      c[r % R][3] = v.w;
     }
     const uint32_t* p = wrow[r & 3];
     wrow[r & 3] = p + g.s * kB;
@@ -684,21 +717,22 @@ int run(const void* win, int nb, int s, int lead, int side, const void* cur,
 
 // The R of a side, among the compiled values no larger than the side
 // (1 always is): the fewest integer instructions per dx, in halves of
-// one. Per dy group: R candidates of n^2 kB / 4 current words each and
-// their folds, and R + n - 1 window rows per lane. At 1 byte a sample a
-// word is one VABSDIFF4, a window row 5 (4 funnel shifts and a pointer
-// step; 3 for the 8-block's 2-word lane), the folds of a candidate
-// about 21 (the pair: 5 keys and the halves' sums) or 6. At 2 bytes a word is 2 (a VIMNMX and an IMAD), a
-// window row 12 (5 loads, 4 funnel shifts, a pointer step and 2 IADD3
-// of its prefix sum), the folds per candidate and lane about 26 (the
-// pair: 2 halves made SADs and unpacked, 3 keys and a shuffle) or 18.
+// one, for the 16-region pair (n = 16) and the 32-block (n = 32). Per
+// dy group: R candidates of n^2 kB / 4 current words each and their
+// folds, and R + n - 1 window rows per lane (4 words of a row a lane).
+// At 1 byte a sample a word is one VABSDIFF4, a window row 5 (4 funnel
+// shifts and a pointer step), the folds of a candidate about 21 (the
+// pair: 5 keys and the halves' sums) or 6. At 2 bytes a word is 2 (a
+// VIMNMX and an IMAD), a window row 12 (5 loads, 4 funnel shifts, a
+// pointer step and 2 IADD3 of its prefix sum), the folds per candidate
+// and lane about 26 (the pair: 2 halves made SADs and unpacked, 3 keys
+// and a shuffle) or 18.
 int pick_r(const int* rs, int nr, int n, bool pair, int kb, int side) {
-  const int lane_words = n * kb / 4 < 4 ? n * kb / 4 : 4;
-  const int lanes = n * kb / 4 / lane_words;
+  const int lanes = n * kb / 16;
   const long long word = kb == 1 ? 2 : 4;
   const long long fold = kb == 1 ? 2 * (pair ? 21 : 6)
                                  : 2 * lanes * (pair ? 26 : 18);
-  const long long row = kb == 1 ? 2 * (lane_words + 1) : 2 * 12;
+  const long long row = kb == 1 ? 2 * 5 : 2 * 12;
   int best = 1;
   long long best_cost = LLONG_MAX;
   for (int m = 0; m < nr; ++m) {
@@ -736,6 +770,533 @@ int run_picked(RList<Rs...>, const void* win, int nb, int s, int lead,
   return err;
 }
 
+// ---------------------------------------------------------------------
+// The 8- and 16-block single search (int_search_small_kernel). Its
+// geometry: a unit is searched by one warp or by part of one (13
+// lanes, or 26 at 10 bits and n = 16, at side 13), so its selection
+// is one warp reduction and its staging is the warp's own.
+
+constexpr int kSmallWarps = 4;              // warps of a block
+constexpr int kSmallThreads = 32 * kSmallWarps;
+constexpr int kStages = 3;                  // staging slots of a warp
+
+// Blocks per SM that __launch_bounds__ asks for: 6 (80 registers) for
+// the uint8 8-blocks, 5 (96) for the uint16 ones, 4 (128) for the
+// 16-blocks, whose ring of current rows is twice as long.
+__host__ __device__ constexpr int small_min_blocks(int n, int kb) {
+  return n == 8 ? (kb == 1 ? 6 : 5) : 4;
+}
+
+// The packing jobs of an N-block at kB bytes a sample: job (i, l) is
+// the kLW words of current row i that lane l of a candidate compares,
+// kJ = kLW / kB int4 (4 samples each) of the int32 plane. A unit has
+// N kL jobs, one per lane of the warp, so a task holds at most
+// 32 / (N kL) units (4 8-blocks; 2 16-blocks, 1 at 10 bits).
+template <int N, int kB>
+struct Small {
+  static constexpr int kL = Lanes<N, kB>::kL;
+  static constexpr int kLW = Lanes<N, kB>::kLW;
+  static constexpr int kCW = Lanes<N, kB>::kCW;
+  static constexpr int kJ = kLW / kB;
+  static constexpr int kJobs = N * kL;
+  static constexpr int kMaxUnits = 32 / kJobs;
+  static_assert(kMaxUnits >= 1, "a unit's jobs fit one warp");
+};
+
+// Shapes of one small launch, fixed on the host. A task is `units`
+// consecutive units, searched by one warp: `tpu` lanes a unit (kL per
+// item), `items` = side x dy groups (dx, dy0) a unit, each lane taking
+// items m0, m0 + tpu / kL, ... A warp slot holds a task's windows
+// (copied as one 16-byte-aligned range, so unit k's window starts at
+// byte `head + k ss` of the slot), at 2 bytes a sample the same bytes
+// one sample later (off_shift: byte b is the window area's b + 2), its
+// packed current blocks
+// (off_cur), its penalties (off_pen: per unit its side x penalties,
+// then its side y penalties; lanes take them as k = lane mod 2^ushift,
+// row lane >> ushift, with 2^ushift >= units) and,
+// at 2 bytes a sample, the packed current sums (off_sum, (units, kL)).
+struct SmallGeo {
+  int s, lead, side, nb, bx, cur_w, cur16;
+  int units, ushift, tpu, items, ntasks, ss;
+  int off_shift, off_cur, off_pen, off_sum, slot_bytes;
+};
+
+// The lane's packing job of task `task`: the kJ int4 of its current
+// row piece (zeros past the last unit). Plain global loads, issued a
+// task ahead so that their latency hides behind a task's search.
+template <int N, int kB>
+__device__ __forceinline__ void small_load_cur(
+    const SmallGeo& g, int task, int lane, const int32_t* __restrict__ cur,
+    int4 (&raw)[Small<N, kB>::kJ]) {
+  using S = Small<N, kB>;
+  const int k = lane / S::kJobs;
+  const int rem = lane - k * S::kJobs;
+  const int i = rem / S::kL, l = rem - i * S::kL;
+  const int u0 = task * g.units;
+  const bool live = k < g.units && u0 + k < g.nb;
+#pragma unroll
+  for (int j = 0; j < S::kJ; ++j) raw[j] = make_int4(0, 0, 0, 0);
+  if (!live) return;
+  int ry = u0 / g.bx, rx = u0 - ry * g.bx + k;
+  while (rx >= g.bx) rx -= g.bx, ++ry;
+  const int32_t* src = cur + static_cast<int64_t>(ry * N + i) * g.cur_w +
+                       rx * N + l * (4 * S::kLW / kB);
+  if (g.cur16) {
+#pragma unroll
+    for (int j = 0; j < S::kJ; ++j)
+      raw[j] = __ldg(reinterpret_cast<const int4*>(src) + j);
+  } else {
+#pragma unroll
+    for (int j = 0; j < S::kJ; ++j)
+      raw[j] = make_int4(__ldg(src + 4 * j), __ldg(src + 4 * j + 1),
+                         __ldg(src + 4 * j + 2), __ldg(src + 4 * j + 3));
+  }
+}
+
+// Packs the lane's job to the sample width (low bytes 4 to a word, low
+// half-words 2 to a word) into the slot; at 2 bytes a sample also sums
+// the packed words of each (unit, lane l) over its N rows (mod 2^32:
+// the c of sum 2 max - w - c) with shuffles across the rows' lanes.
+template <int N, int kB>
+__device__ __forceinline__ void small_pack_cur(
+    const SmallGeo& g, int lane, uint8_t* slot,
+    const int4 (&raw)[Small<N, kB>::kJ]) {
+  using S = Small<N, kB>;
+  const int k = lane / S::kJobs;
+  const int rem = lane - k * S::kJobs;
+  const int i = rem / S::kL, l = rem - i * S::kL;
+  uint32_t wd[S::kLW];
+#pragma unroll
+  for (int j = 0; j < S::kJ; ++j) {
+    const int4 v = raw[j];
+    if constexpr (kB == 1) {
+      wd[j] = static_cast<uint32_t>(v.x & 255) |
+              static_cast<uint32_t>(v.y & 255) << 8 |
+              static_cast<uint32_t>(v.z & 255) << 16 |
+              static_cast<uint32_t>(v.w & 255) << 24;
+    } else {
+      wd[2 * j] = static_cast<uint32_t>(v.x & 0xffff) |
+                  static_cast<uint32_t>(v.y) << 16;
+      wd[2 * j + 1] = static_cast<uint32_t>(v.z & 0xffff) |
+                      static_cast<uint32_t>(v.w) << 16;
+    }
+  }
+  const bool live = k < g.units;
+  uint32_t* dst = reinterpret_cast<uint32_t*>(slot + g.off_cur) +
+                  (k * N + i) * S::kCW + l * S::kLW;
+  if (live) {
+    if constexpr (S::kLW == 4)
+      *reinterpret_cast<uint4*>(dst) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    else
+      *reinterpret_cast<uint2*>(dst) = make_uint2(wd[0], wd[1]);
+  }
+  if constexpr (kB == 2) {
+    uint32_t sum = wd[0] + wd[1] + wd[2] + wd[3];
+#pragma unroll
+    for (int m = S::kL; m < S::kJobs; m *= 2)
+      sum += __shfl_xor_sync(0xffffffffu, sum, m);
+    if (live && i == 0)
+      reinterpret_cast<uint32_t*>(slot + g.off_sum)[k * S::kL + l] = sum;
+  }
+}
+
+// The byte offset in its slot of task `task`'s first window: the
+// window's address mod 16 (small_stage copies from the 16-byte
+// boundary below it).
+__device__ __forceinline__ int small_head(const SmallGeo& g, int task,
+                                          const uint8_t* win) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(win) +
+                           static_cast<uintptr_t>(task) * g.units * g.ss) &
+                          15);
+}
+
+// Starts the copies of task `task`'s windows and penalties into a slot:
+// the windows as one range of 16-byte cp.async from the 16-byte
+// boundary at or below their first byte to the one at or above their
+// last (the bytes around them lie in the same 16-byte-aligned pieces of
+// the windows' allocation and are never compared), the penalties 4
+// bytes at a time.
+__device__ __forceinline__ void small_stage(
+    const SmallGeo& g, int task, int lane, uint8_t* slot,
+    const uint8_t* __restrict__ win, const int32_t* __restrict__ penx,
+    const int32_t* __restrict__ peny) {
+  const int u0 = task * g.units;
+  const int un = min(g.units, g.nb - u0);
+  const uintptr_t first =
+      reinterpret_cast<uintptr_t>(win) + static_cast<uintptr_t>(u0) * g.ss;
+  const uintptr_t lo = first & ~static_cast<uintptr_t>(15);
+  const uintptr_t hi = (first + static_cast<uintptr_t>(un) * g.ss + 15) &
+                       ~static_cast<uintptr_t>(15);
+  const int chunks = static_cast<int>((hi - lo) >> 4);
+  for (int c = lane; c < chunks; c += 32)
+    cp_async<16>(slot + 16 * c, reinterpret_cast<const void*>(lo + 16 * c));
+  int32_t* pen = reinterpret_cast<int32_t*>(slot + g.off_pen);
+  const int k = lane & ((1 << g.ushift) - 1);
+  if (k < un) {
+    for (int dd = lane >> g.ushift; dd < 2 * g.side;
+         dd += 32 >> g.ushift) {
+      const int32_t* src = dd < g.side ? penx + static_cast<int64_t>(dd) *
+                                                   g.nb
+                                       : peny + static_cast<int64_t>(
+                                                    dd - g.side) * g.nb;
+      cp_async<4>(pen + k * 2 * g.side + dd, src + u0 + k);
+    }
+  }
+}
+
+// One item of a small search: dx and the R consecutive dy from dy0
+// (side - R for the last group of a side that R does not divide),
+// lane l of kL, as search_item walks a single n-block, with three
+// differences: with one lane a candidate, each candidate's sum is
+// folded as soon as its last row is in (so at most min(R, N) sums are
+// live, not R); at 2 bytes a sample one packed sum covers all N rows (a
+// half holds 4 samples of a row over N <= 16 rows, at most 64 x 1023 <
+// 2^16), started from the walk's window prefix less the current sum, so
+// a finished sum less the prefix at its end is the packed SAD; and kL
+// lanes add their SADs with a shuffle each after the walk, then fold.
+// At 2 bytes a sample the rows are read aligned from the window area or
+// its copy one sample later, instead of realigned by funnel shifts.
+// Returns the item's first least cost and its candidate index in
+// (cost, idx).
+template <int N, int R, int kB>
+__device__ __forceinline__ void small_item(
+    int dx, int dy0, int l, int woff, const SmallGeo& g, const uint8_t* slot,
+    const uint32_t* cslot, uint32_t csum, const int32_t* px,
+    const int32_t* py, int& cost, int& idx) {
+  // 2 bytes a sample: a lane's row starts on an even byte, so it is read
+  // aligned from the window area or from its copy one sample later
+  constexpr bool kAligned = kB == 2;
+  using S = Small<N, kB>;
+  constexpr int kLW = S::kLW;
+  constexpr int kCW = S::kCW;
+  constexpr int kRing = R < N ? R : N;
+  const uint32_t* crow = cslot + kLW * l;
+  const int a0 = woff + ((g.lead + dy0) * g.s + g.lead + dx) * kB + 4 * kLW * l;
+  const uint32_t* wrow[4];
+  uint32_t sh[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int aq = a0 + q * g.s * kB;
+    wrow[q] = reinterpret_cast<const uint32_t*>(slot) + (aq >> 2);
+    sh[q] = static_cast<uint32_t>(aq & 3) * 8;
+    if (kAligned && sh[q])
+      wrow[q] = reinterpret_cast<const uint32_t*>(slot + g.off_shift) +
+                ((aq - 2) >> 2);
+  }
+  const int pxd = px[dx];
+  int bc = INT_MAX, bk = 0;
+  uint32_t c[kRing][kLW];
+  uint32_t acc[R];
+  // 2 bytes a sample: pw, the packed sum of the lane's window words in
+  // the rows walked so far; two as in search_item
+  const uint32_t two = static_cast<uint32_t>(g.lead >> 31) + 2;
+  uint32_t pw = 0;
+  auto fold = [&](int k, uint32_t sad) {
+    const int cst = static_cast<int>(sad) + pxd + py[k];
+    if (cst < bc) bc = cst, bk = k;
+  };
+#pragma unroll
+  for (int r = 0; r < R + N - 1; ++r) {
+    if (r < N) {
+      if constexpr (kLW == 4) {
+        const uint4 v = *reinterpret_cast<const uint4*>(crow + r * kCW);
+        c[r % kRing][0] = v.x;
+        c[r % kRing][1] = v.y;
+        c[r % kRing][2] = v.z;
+        c[r % kRing][3] = v.w;
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(crow + r * kCW);
+        c[r % kRing][0] = v.x;
+        c[r % kRing][1] = v.y;
+      }
+    }
+    const uint32_t* p = wrow[r & 3];
+    wrow[r & 3] = p + g.s * kB;
+    uint32_t ref[kLW];
+    if constexpr (kAligned) {
+#pragma unroll
+      for (int j = 0; j < kLW; ++j) ref[j] = p[j];
+    } else {
+      uint32_t w[kLW + 1];
+#pragma unroll
+      for (int j = 0; j <= kLW; ++j) w[j] = p[j];
+#pragma unroll
+      for (int j = 0; j < kLW; ++j)
+        ref[j] = __funnelshift_r(w[j], w[j + 1], sh[r & 3]);
+    }
+    if (r < R) acc[r] = kB == 2 ? pw - csum : 0;   // candidate r starts
+    if constexpr (kB == 2) pw += ref[0] + ref[1] + ref[2] + ref[3];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int i = r - k;                // current row of candidate k
+      if (i < 0 || i >= N) continue;
+#pragma unroll
+      for (int j = 0; j < kLW; ++j) {
+        if constexpr (kB == 1)
+          acc[k] = sad4(ref[j], c[i % kRing][j], acc[k]);
+        else
+          acc[k] = mad(max2(ref[j], c[i % kRing][j]), two, acc[k]);
+      }
+      if (i == N - 1) {                   // candidate k is complete
+        if constexpr (kB == 2) acc[k] = unpack2(acc[k] - pw);
+        if constexpr (S::kL == 1) fold(k, acc[k]);
+      }
+    }
+  }
+  // kL lanes: their partial SADs (each candidate's register now holds
+  // its lane's), added with one shuffle each after the walk, so that no
+  // shuffle sits inside it
+  if constexpr (S::kL > 1) {
+    const unsigned lane_mask =
+        ((1u << S::kL) - 1) << (threadIdx.x & (32 - S::kL));
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      fold(k, acc[k] + __shfl_xor_sync(lane_mask, acc[k], 1));
+  }
+  cost = bc;
+  idx = (dy0 + bk) * g.side + dx;
+}
+
+// N = 8 or 16; R: dy candidates per item; kB: bytes a sample. Each
+// warp walks its tasks (task = its global warp index, then strides of
+// the grid's warps) through kStages slots of its own: the windows and
+// penalties of the task two ahead are in flight (cp.async), the current
+// blocks of the next one are in registers, and the only
+// synchronisation is the warp's own.
+template <int N, int R, int kB>
+__global__ void __launch_bounds__(kSmallThreads, small_min_blocks(N, kB))
+int_search_small_kernel(const uint8_t* __restrict__ win,
+                        const int32_t* __restrict__ cur,
+                        const int32_t* __restrict__ penx,
+                        const int32_t* __restrict__ peny,
+                        int32_t* __restrict__ out_cost,
+                        int32_t* __restrict__ out_idx, SmallGeo g) {
+  using S = Small<N, kB>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint8_t* wsm = smem + warp * kStages * g.slot_bytes;
+  const int stride = gridDim.x * kSmallWarps;
+  int task = blockIdx.x * kSmallWarps + warp;
+  if (task >= g.ntasks) return;
+
+  // the lane's unit and item slot
+  const int k = lane / g.tpu;
+  const int t = lane - k * g.tpu;
+  const int l = t % S::kL;
+  const int per = g.tpu / S::kL;
+  const int m0 = t / S::kL;
+
+  // the first kStages - 1 tasks' copies, then the first task's current
+  // blocks (the one wait that nothing hides) and the second's loads
+  int4 raw[S::kJ];
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (task + j * stride < g.ntasks)
+      small_stage(g, task + j * stride, lane, wsm + j * g.slot_bytes, win,
+                  penx, peny);
+    cp_async_commit();
+  }
+  small_load_cur<N, kB>(g, task, lane, cur, raw);
+  small_pack_cur<N, kB>(g, lane, wsm, raw);
+  if (task + stride < g.ntasks)
+    small_load_cur<N, kB>(g, task + stride, lane, cur, raw);
+
+  for (int it = 0; task < g.ntasks; task += stride, ++it) {
+    const int cur_slot = it % kStages;
+    const int ahead = task + (kStages - 1) * stride;
+    if (ahead < g.ntasks)
+      small_stage(g, ahead, lane,
+                  wsm + ((it + kStages - 1) % kStages) * g.slot_bytes, win,
+                  penx, peny);
+    cp_async_commit();
+    // this task's copies are done (at most kStages - 1 groups pending)
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 1)
+                 : "memory");
+    __syncwarp();
+
+    uint8_t* slot = wsm + cur_slot * g.slot_bytes;
+    if constexpr (kB == 2) {
+      // the windows one sample later: word c of the copy is bytes
+      // 4 c + 2 .. 4 c + 5 of the window area
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(slot);
+      uint32_t* w2 = reinterpret_cast<uint32_t*>(slot + g.off_shift);
+      for (int c = lane; c < g.off_shift / 4 - 1; c += 32)
+        w2[c] = __funnelshift_r(w[c], w[c + 1], 16);
+      __syncwarp();
+    }
+    const int u = task * g.units + k;
+    if (k < g.units && u < g.nb) {
+      const int32_t* pen =
+          reinterpret_cast<const int32_t*>(slot + g.off_pen) + k * 2 * g.side;
+      const uint32_t* cslot =
+          reinterpret_cast<const uint32_t*>(slot + g.off_cur) + k * N * S::kCW;
+      const uint32_t csum =
+          kB == 2 ? reinterpret_cast<const uint32_t*>(slot + g.off_sum)
+                        [k * S::kL + l] : 0;
+      const int head = small_head(g, task, win);
+      int bc = INT_MAX, bi = INT_MAX;
+      // items m0, m0 + per, ...: (dx, dy group) = (m mod side, m / side)
+      int dx = m0, grp = 0;
+      while (dx >= g.side) dx -= g.side, ++grp;
+#pragma unroll 1
+      for (int m = m0; m < g.items; m += per) {
+        const int dy0 = min(grp * R, g.side - R);
+        int c, i;
+        small_item<N, R, kB>(dx, dy0, l, head + k * g.ss, g, slot, cslot,
+                             csum, pen, pen + g.side + dy0, c, i);
+        if (c < bc || (c == bc && i < bi)) bc = c, bi = i;
+        dx += per;
+        while (dx >= g.side) dx -= g.side, ++grp;
+      }
+      // the unit's lanes are tpu consecutive lanes of this warp: the
+      // least cost, then the least index that has it, then the start
+      // key (1 << 30, 0), which wins ties
+      const unsigned mask = g.tpu == 32 ? 0xffffffffu
+                            : ((1u << g.tpu) - 1) << (k * g.tpu);
+      const int mc = __reduce_min_sync(mask, bc);
+      const unsigned mi = __reduce_min_sync(
+          mask, bc == mc ? static_cast<unsigned>(bi) : UINT_MAX);
+      if (t == 0) {
+        const bool better = mc < (1 << 30);
+        out_cost[u] = better ? mc : (1 << 30);
+        out_idx[u] = better ? static_cast<int>(mi) : 0;
+      }
+    }
+    // the next task's current blocks into its slot; the loads of the
+    // one after it
+    if (task + stride < g.ntasks) {
+      small_pack_cur<N, kB>(g, lane, wsm + ((it + 1) % kStages) * g.slot_bytes,
+                            raw);
+      if (task + 2 * stride < g.ntasks)
+        small_load_cur<N, kB>(g, task + 2 * stride, lane, cur, raw);
+    }
+    __syncwarp();
+  }
+}
+
+// The geometry of a small search at R: the fewest warp instructions
+// per unit (see small_pick_r) decide R; units per task as many as fill
+// a warp's lanes.
+template <int N, int kB>
+SmallGeo small_geo(int nb, int s, int lead, int side, int r, int cur_w,
+                   int bx, bool cur16) {
+  using S = Small<N, kB>;
+  SmallGeo g{};
+  g.s = s;
+  g.lead = lead;
+  g.side = side;
+  g.nb = nb;
+  g.bx = bx;
+  g.cur_w = cur_w;
+  g.cur16 = cur16;
+  g.items = side * ((side + r - 1) / r);
+  const int per = min(g.items, 32 / S::kL);
+  g.tpu = per * S::kL;
+  g.units = max(1, min(32 / g.tpu, S::kMaxUnits));
+  while ((1 << g.ushift) < g.units) ++g.ushift;
+  g.ntasks = (nb + g.units - 1) / g.units;
+  g.ss = s * s * kB;
+  // windows: units x ss bytes from a 16-byte boundary up to 15 bytes
+  // below them, rounded up to 16, and the walk's reads past the last
+  // row (its fifth word): round16(units ss) + 48 bytes
+  g.off_shift = round16(g.units * g.ss) + 48;
+  g.off_cur = (kB == 2 ? 2 : 1) * g.off_shift;
+  g.off_pen = g.off_cur + round16(g.units * N * N * kB);
+  g.off_sum = g.off_pen + round16(2 * side * g.units * 4);
+  g.slot_bytes = g.off_sum + round16(g.units * S::kL * 4);
+  return g;
+}
+
+// The R of a small search among the compiled values no larger than the
+// side: the fewest warp instructions per unit. Per item: R candidates
+// of N^2 kB / (4 kL) words a lane (a VABSDIFF4 each, or a VIMNMX and
+// an IMAD), a fold of about 6 instructions (10 with the unpacking at 2
+// bytes a sample), and R + N - 1 window rows (kLW + 1 loads, kLW funnel
+// shifts and a step; 2 IADD3 more of the prefix at 2 bytes) and the N
+// current rows' loads; a lane takes ceil(items / per) items, and a
+// warp holds `units` units.
+int small_pick_r(const int* rs, int nr, int n, int kb, int side) {
+  const int lw = n * kb / 4 < 4 ? n * kb / 4 : 4;
+  const int kl = n * kb / 4 / lw;
+  const int max_units = 32 / (n * kl);
+  int best = 1;
+  long long best_cost = LLONG_MAX;
+  for (int m = 0; m < nr; ++m) {
+    const int r = rs[m];
+    if (r > side) continue;
+    const long long items = static_cast<long long>(side) *
+                            ((side + r - 1) / r);
+    const long long per = items < 32 / kl ? items : 32 / kl;
+    const long long units =
+        max(1LL, min(32 / (per * kl), static_cast<long long>(max_units)));
+    const long long loops = (items + per - 1) / per;
+    const long long item =
+        r * (n * n * kb / (4 * kl) * kb + (kb == 1 ? 6 : 10)) +
+        (r + n - 1) * (2 * lw + 2 + (kb == 2 ? 2 : 0)) + n;
+    // per unit, in units of 1 / 60 of a warp instruction (60 is a
+    // multiple of every unit count)
+    const long long cost = loops * item * 60 / units;
+    if (cost < best_cost) best = r, best_cost = cost;
+  }
+  return best;
+}
+
+using SmallR = RList<1, 5, 7, 13>;
+
+// Launches int_search_small_kernel<N, R, kB> with geometry g, or with
+// info != nullptr launches nothing and fills info with the geometry:
+// threads a block, units a task, lanes a unit, R, resident blocks per
+// SM, registers a thread, dynamic shared memory a block, grid blocks,
+// tasks.
+template <int N, int R, int kB>
+int small_run(const SmallGeo& g, const void* win, const void* cur,
+              const Out& a, cudaStream_t stream, int* info) {
+  auto* kernel = int_search_small_kernel<N, R, kB>;
+  const int smem = kSmallWarps * kStages * g.slot_bytes;
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > kSmemDefault) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                kSmallThreads, smem);
+  const int warps = (g.ntasks + kSmallWarps - 1) / kSmallWarps;
+  const int grid = min(warps, max(1, per_sm) * sms);
+  if (info != nullptr) {
+    cudaFuncAttributes attr{};
+    cudaFuncGetAttributes(&attr, kernel);
+    const int vals[] = {kSmallThreads, g.units, g.tpu, R, per_sm,
+                        attr.numRegs, smem, grid, g.ntasks};
+    for (int i = 0; i < 9; ++i) info[i] = vals[i];
+    return static_cast<int>(cudaGetLastError());
+  }
+  kernel<<<grid, kSmallThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(win), static_cast<const int32_t*>(cur),
+      a.penx, a.peny, a.cost, a.idx, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int N, int kB, int... Rs>
+int small_picked(RList<Rs...>, const void* win, int nb, int s, int lead,
+                 int side, const void* cur, int cur_w, int bx, const Out& a,
+                 cudaStream_t st, int* info) {
+  constexpr int rs[] = {Rs...};
+  const int r = small_pick_r(rs, sizeof...(Rs), N, kB, side);
+  const bool cur16 =
+      reinterpret_cast<uintptr_t>(cur) % 16 == 0 && cur_w % 4 == 0;
+  const SmallGeo g =
+      small_geo<N, kB>(nb, s, lead, side, r, cur_w, bx, cur16);
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  (void)((r == Rs &&
+          ((err = small_run<N, Rs, kB>(g, win, cur, a, st, info)), true)) ||
+         ...);
+  return err;
+}
+
 Out out_of(const void* penx, const void* peny, int nb, void* cost,
            void* idx) {
   return Out{static_cast<const int32_t*>(penx),
@@ -767,11 +1328,11 @@ int search_single(const void* win, int nb, int s, int lead, int side, int n,
   using Rs = std::conditional_t<kB == 1, SingleR1, SingleR2>;
   switch (n) {
     case 8:
-      return run_picked<8, false, kB>(Rs{}, win, nb, s, lead, side, cur,
-                                      cur_w, bx, a, a, st);
+      return small_picked<8, kB>(SmallR{}, win, nb, s, lead, side, cur,
+                                 cur_w, bx, a, st, nullptr);
     case 16:
-      return run_picked<16, false, kB>(Rs{}, win, nb, s, lead, side, cur,
-                                       cur_w, bx, a, a, st);
+      return small_picked<16, kB>(SmallR{}, win, nb, s, lead, side, cur,
+                                  cur_w, bx, a, st, nullptr);
     case 32:
       return run_picked<32, false, kB>(Rs{}, win, nb, s, lead, side, cur,
                                        cur_w, bx, a, a, st);
@@ -827,4 +1388,26 @@ extern "C" int int_search_u16(const void* win, int nb, int s, int lead,
                               void* cost, void* idx, void* stream) {
   return search_single<2>(win, nb, s, lead, side, n, cur, cur_w, bx, penx,
                           peny, cost, idx, stream);
+}
+
+// The launch geometry that int_search_u8 (kb 1) or int_search_u16 (kb
+// 2) gives n-blocks (n = 8 or 16) at these shapes, without launching:
+// info[9] = threads a block, units a task (one warp), lanes a unit, R,
+// resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// registers a thread, dynamic shared memory a block, grid blocks, tasks.
+extern "C" int int_search_small_geometry(int kb, int n, int nb, int s,
+                                         int lead, int side, int cur_w,
+                                         int bx, int* info) {
+  const Out a{};
+  if (nb <= 0 || (kb != 1 && kb != 2) || (n != 8 && n != 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kb == 1)
+    return n == 8 ? small_picked<8, 1>(SmallR{}, nullptr, nb, s, lead, side,
+                                       nullptr, cur_w, bx, a, nullptr, info)
+                  : small_picked<16, 1>(SmallR{}, nullptr, nb, s, lead, side,
+                                        nullptr, cur_w, bx, a, nullptr, info);
+  return n == 8 ? small_picked<8, 2>(SmallR{}, nullptr, nb, s, lead, side,
+                                     nullptr, cur_w, bx, a, nullptr, info)
+                : small_picked<16, 2>(SmallR{}, nullptr, nb, s, lead, side,
+                                      nullptr, cur_w, bx, a, nullptr, info);
 }

@@ -137,13 +137,14 @@ def resource_usage(name: str) -> list[dict]:
     return rows
 
 
-def sass_opcodes(name: str, full: bool = False) -> dict[str, list[str]]:
+def sass_opcodes(name: str, full: bool = False,
+                 so: Path | None = None) -> dict[str, list[str]]:
     """The opcodes, in order and without modifiers (VABSDIFF4.U8.ACC is
     VABSDIFF4; with full=True, with them), of each kernel in the built
-    csrc/<name>.cu, from cuobjdump -sass; raises if the tool is
-    missing."""
+    csrc/<name>.cu (or in the library `so`), from cuobjdump -sass;
+    raises if the tool is missing."""
     out = subprocess.run([_cuda_tool("cuobjdump"), "-sass",
-                          str(_so_path(name))], capture_output=True,
+                          str(so or _so_path(name))], capture_output=True,
                          text=True, timeout=120, check=True).stdout
     funcs, ops = [], []
     for line in out.splitlines():
