@@ -190,6 +190,12 @@ Phases (each raises on failure; the script exits 0 only if all pass):
      uint8 and the Main10 path's for uint16, as its ms_of says), the
      card line, and the last line
      {"ok": true, "device": {...}}.
+Card == reference: every stream that tools/ref_digests_1080p.json
+names (RefDigests: the reference's frames of the same calls on the same
+frames, written by tools/port_vs_ref.py on the CPU) is held, frame by
+frame, to the reference's type, POC, byte count and sha256 where phases
+4-10 code it, one card_equals_reference line per leg; a differing frame
+or a leg no phase checked fails the run.
 Imports neither JAX nor the x265_tpu reference package.
 """
 
@@ -204,6 +210,7 @@ import tempfile
 import time
 from collections import Counter
 from functools import lru_cache
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -558,6 +565,82 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+REF_DIGESTS = Path(__file__).resolve().parent / "tools" / \
+    "ref_digests_1080p.json"
+DIGEST_KEYS = ("type", "poc", "bytes", "sha256")
+
+
+def frame_digest(r) -> dict:
+    """One coded frame as the digest file records it."""
+    return {"type": r.ftype, "poc": int(r.poc), "bytes": len(r.bitstream),
+            "sha256": hashlib.sha256(r.bitstream).hexdigest()}
+
+
+class RefDigests:
+    """The reference's (x265_tpu's) frames of the card's 1080p streams,
+    from tools/ref_digests_1080p.json: per leg, the stream it holds (the
+    timed pass of phase_path:<path>, phase_b_path or phase_aq_cutree),
+    the configuration, the clip, and per frame in coded order its type,
+    POC, byte count and sha256. tools/port_vs_ref.py --write-digests
+    wrote them where every frame of the port equalled the reference's
+    on the CPU. check() holds a stream's frames to its legs' and prints
+    one card_equals_reference line per leg; finish() raises if a leg
+    was never checked."""
+
+    def __init__(self, path=REF_DIGESTS, doc=None):
+        doc = doc if doc is not None else json.loads(Path(path).read_text())
+        self.legs = doc["legs"]
+        self.checked = set()
+        for leg, e in self.legs.items():
+            frames = e["frames"]
+            if not (isinstance(e.get("stream"), str) and
+                    e.get("size") == "1080x1920" and e.get("bits") == 8 and
+                    isinstance(e.get("config"), dict) and frames and
+                    e.get("clip", {}).get("frames") == len(frames) and
+                    all(tuple(sorted(f)) == tuple(sorted(DIGEST_KEYS))
+                        for f in frames) and
+                    e.get("bytes") == sum(f["bytes"] for f in frames)):
+                raise ValueError(f"reference digests: leg {leg} is "
+                                 f"malformed")
+
+    def check(self, stream: str, cfg, results) -> None:
+        """Hold results (a card stream's frames in coded order, coded in
+        the configuration cfg) to every leg recorded for stream: its
+        first n frames, or all of them for a stream whose frames depend
+        on its length (not a phase_path pass)."""
+        import dataclasses
+        for leg, e in self.legs.items():
+            if e["stream"] != stream:
+                continue
+            want = e["frames"]
+            n = len(want)
+            whole = not stream.startswith("phase_path:")
+            if len(results) < n or (whole and len(results) != n):
+                raise AssertionError(
+                    f"card != reference at {leg}: {len(results)} frames "
+                    f"coded, {n} recorded")
+            if json.loads(json.dumps(dataclasses.asdict(cfg))) != \
+                    e["config"]:
+                raise AssertionError(f"card != reference at {leg}: the "
+                                     f"configuration differs")
+            for i, (w, r) in enumerate(zip(want, results)):
+                got = frame_digest(r)
+                if got != w:
+                    raise AssertionError(
+                        f"card != reference at {leg}: frame {i} (coded "
+                        f"order) is {got}, the reference's {w}")
+            self.checked.add(leg)
+            print(json.dumps({"card_equals_reference": leg,
+                              "stream": stream, "frames": n,
+                              "bytes": e["bytes"]}), flush=True)
+
+    def finish(self) -> None:
+        missing = sorted(set(self.legs) - self.checked)
+        if missing:
+            raise AssertionError(f"card == reference: legs {missing} were "
+                                 f"never checked")
+
+
 def encode_ippp(frames, device, cfg, timing=None, chunk=CHUNK,
                 need_recon=False):
     """A path through its user entry points, in the configuration cfg:
@@ -688,14 +771,22 @@ def encode_seq(frames, device, cfg, timing=None):
     enc.encode_frame = timed("i_frame_s", real_i)
     enc.encode_pgop_pipelined = timed("p_frames_s", real_p)
     res = enc.encode_sequence(frames)
-    coded = []
-    for m in maps:
-        coded.append((np.clip(m[0] - 3, 0, 51), max(cfg.qp - 3, 0)))
-        coded.extend((x, cfg.qp) for x in m[1:])
+    coded = coded_qp_maps(maps, cfg.qp)
     if timing is not None:
         timing.update(**secs, host_i_split_s=dict(split),
                       lookahead_s=list(enc.lookahead_seconds))
     return res, coded
+
+
+def coded_qp_maps(maps, qp) -> list:
+    """The lookahead's QP maps of each GOP (encode_sequence's calls of
+    lookahead_qp_maps) as the frames code them: (map, slice QP) per
+    frame, the I frame's map and QP lowered by 3."""
+    coded = []
+    for m in maps:
+        coded.append((np.clip(m[0] - 3, 0, 51), max(qp - 3, 0)))
+        coded.extend((x, qp) for x in m[1:])
+    return coded
 
 
 def qp_map_stats(coded) -> dict:
@@ -1463,7 +1554,7 @@ def phase_b_card_equals_cpu():
     return out
 
 
-def phase_b_path(first_frames):
+def phase_b_path(first_frames, digests=None):
     """The fast path with B frames at full size: the bench clip, a timed
     pass with every launch count set to 0 just before it and read just
     after (its warm-up is the 1080p card-vs-CPU leg of the same
@@ -1492,6 +1583,8 @@ def phase_b_path(first_frames):
             [r.bitstream for r in first_frames]:
         raise AssertionError("fast_b: the clip's first frames differ from "
                              "its card-vs-CPU leg")
+    if digests is not None:
+        digests.check("phase_b_path", cfg, res)
     print(json.dumps({
         "path": "fast_b", "clip": "1080p random access CQP32 1I+24 "
         "(CLI B loop, b-adapt)", "frames": len(res),
@@ -1881,13 +1974,14 @@ def phase_dqp_card_equals_cpu():
     return out
 
 
-def phase_aq_cutree(first_frames):
+def phase_aq_cutree(first_frames, digests=None):
     """The medium/zerolatency path with AQ 2 + cuTree at full size,
     through encode_sequence: the bench clip, a timed pass with every
     launch count set to 0 just before it and read just after (its
     warm-up is the 1080p card-vs-CPU leg of the same configuration,
     which ran on the card just before; the lookahead sees the whole
-    25-frame GOP, so the maps differ from that 2-frame leg's). Then one
+    25-frame GOP, so the maps differ from that 2-frame leg's; digests,
+    a RefDigests, holds it to the reference's frames). Then one
     profile of its P chunk with its maps after its I frame, and the
     device's busy and idle shares of the timed pass's P-frame wall.
     Returns the launches."""
@@ -1910,6 +2004,8 @@ def phase_aq_cutree(first_frames):
         raise AssertionError("aq_cutree produced missing frames")
     if first_frames is None or len(first_frames) != 2:
         raise AssertionError("aq_cutree: no card-vs-CPU leg ran")
+    if digests is not None:
+        digests.check("phase_aq_cutree", cfg, res)
     stats = qp_map_stats(coded)
     if stats["qp_ne_slice_share"] == 0:
         raise AssertionError("aq_cutree: every CTU at its slice QP")
@@ -2284,14 +2380,16 @@ def _want(launches: dict, want: dict) -> bool:
     return all(launches[k] == v for k, v in want.items())
 
 
-def phase_path(path: str, make_cfg, first_frames):
+def phase_path(path: str, make_cfg, first_frames, digests=None):
     """One path at full size: the bench clip, 1 I + 24 P in chunks of 8,
     a warm-up pass over its first chunk (1 I + 8 P), then a timed pass
     with every launch count set to 0 just before it and read just
     after. first_frames: the card's frames of a card-vs-CPU leg of this
     configuration on the same clip, which the timed pass must
-    reproduce. Returns the launches, the clip and the timed pass's I
-    frame (its DeviceRef), from which the path's profile predicts."""
+    reproduce; digests (RefDigests) holds the timed pass to the
+    reference's frames. Returns the launches, the clip and the timed
+    pass's I frame (its DeviceRef), from which the path's profile
+    predicts."""
     frames = [synth_1080p(i % 3, shift=2 * i) for i in range(GOP)]
     t0 = time.perf_counter()
     warm = encode_ippp(frames[:1 + CHUNK], "cuda", make_cfg(1080, 1920))
@@ -2321,6 +2419,8 @@ def phase_path(path: str, make_cfg, first_frames):
             [r.bitstream for r in first_frames]:
         raise AssertionError(f"{path}: the clip's first frames differ from "
                              f"its card-vs-CPU leg")
+    if digests is not None:
+        digests.check(f"phase_path:{path}", make_cfg(1080, 1920), res)
     nbytes = sum(len(r.bitstream) for r in res)
     print(json.dumps({"path": path,
                       "clip": "1080p IPPP CQP32 1I+24P chunk 8",
@@ -3162,6 +3262,7 @@ def main() -> int:
     from x265_tpu_torch.native.entropy_native import get_lib
 
     card = card_line()
+    digests = RefDigests()
     t0 = time.perf_counter()
     phase_s, last = {}, [t0]
     cpu_legs = CpuLegs()
@@ -3238,7 +3339,8 @@ def main() -> int:
             ("medium", medium_config,
              legs["medium/zerolatency 1080x1920 1I+1P"]),
             ("slow", slow_config, legs["slow/zerolatency 1080x1920 1I+1P"])):
-        launches[path], frames, i_ref = phase_path(path, make_cfg, first)
+        launches[path], frames, i_ref = phase_path(path, make_cfg, first,
+                                                   digests)
         log(f"{path} path ran, launches {launches[path]}")
         done(f"{path}_path")
         phase_profile(frames, make_cfg(1080, 1920), path, i_ref=i_ref)
@@ -3248,7 +3350,7 @@ def main() -> int:
     first = phase_b_card_equals_cpu()
     log("B path: card == CPU")
     done("b_card_equals_cpu")
-    launches["fast_b"], frames = phase_b_path(first)
+    launches["fast_b"], frames = phase_b_path(first, digests)
     log(f"fast_b path ran, launches {launches['fast_b']}")
     done("fast_b_path")
     phase_b_profile(frames)
@@ -3256,7 +3358,7 @@ def main() -> int:
     first = phase_dqp_card_equals_cpu()
     log("dQP legs: card == CPU")
     done("dqp_card_equals_cpu")
-    launches["aq_cutree"] = phase_aq_cutree(first)
+    launches["aq_cutree"] = phase_aq_cutree(first, digests)
     log(f"aq_cutree path ran, launches {launches['aq_cutree']}")
     done("aq_cutree_path_and_profile")
     # Main10 before the CLI phase, so that its stream decodes meanwhile
@@ -3272,6 +3374,8 @@ def main() -> int:
     phase_decode(time.perf_counter() - t0)
     log("decode: every kept card stream decodes to its recon")
     done("decode")
+    digests.finish()
+    log(f"card == reference: legs {sorted(digests.checked)}")
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": time.perf_counter() - t0}), flush=True)
 

@@ -8,8 +8,11 @@ dense search (coarse_search, refine_size, motion_search_frame) on
 tests/test_me.py's two inputs, both at 64x96; encode_b_frame_arrays, every
 FrameBSyntax field and the recon, with host and device references.
 Whole streams: encode_bgop on tests/test_bframes.py's three
-configurations and clips (96x64 deblock off and on, 64x64 with deblock,
-SAO and the MD5 SEI), encode_minigop(device=False) over 4 frames, one
+configurations and clips (96x64 deblock off and on; its 64x64 clip
+with deblock, SAO and the MD5 SEI coded here at 96x64, the shape of
+the search tests above, whose coarse and refinement programs it
+reuses: at 64x64 the reference traced four more, about 125 s cold),
+encode_minigop(device=False) over 4 frames, one
 WPP + dQP stream, one Main10 stream without SAO, and get_stats as
 tests/test_ratecontrol.py::test_encoder_stats reads it. Every stream is
 byte-identical to the reference's, and both the reference's and the
@@ -226,7 +229,8 @@ def test_motion_search_frame_matches_reference(case):
 BGOP = {
     "96x64_deblock_off": (96, 64, 5, 41, dict(qp=32, deblock=False)),
     "96x64_deblock_on": (96, 64, 5, 41, dict(qp=32, deblock=True)),
-    "64x64_sao_hash": (64, 64, 3, 44, dict(qp=35, deblock=True, sao=True,
+    # the id names test_bframes.py's 64x64 clip; coded here at 96x64
+    "64x64_sao_hash": (96, 64, 3, 44, dict(qp=35, deblock=True, sao=True,
                                             hash_sei=True)),
 }
 
